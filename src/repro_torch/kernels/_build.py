@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` to a shared library.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
+Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so`` at the
+repository root, at first use, then loaded with :mod:`ctypes`.  The hash is
+of the source and the flags, so an edited source never loads a stale
+library.  Nothing is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+#: Every kernel source of the port, by library name.
+SOURCES = ("cam_search",)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: name -> (seconds, nvcc's output) of builds made by this process.
+build_logs: dict[str, tuple[float, str]] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels of "
+            "repro_torch are built from source at first use")
+    return str(path)
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every source not yet built, all ``nvcc`` runs at once.
+
+    Returns name -> library path.  Raises :class:`RuntimeError` with the
+    compiler's output if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    t0 = time.perf_counter()
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    failed = []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[n] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``lib<name>``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            _libs[name] = lib
+        return lib

@@ -44,6 +44,13 @@ except ImportError:
     import _hypothesis_stub
     _hypothesis_stub.install()
 
+# -- markers ------------------------------------------------------------------
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where none is present")
+
+
 # -- compiled-executable cache bounding -------------------------------------
 
 @pytest.fixture(autouse=True, scope="module")
