@@ -17,12 +17,16 @@ exits non-zero without the final ``ok`` line:
 3. the service at full size: a 256-wide, 3-bit table of capacity 2^20
    holding 1,000,000 rows, 4,096 lookups at k = 10 through the driver
    (half exact, half with 8 of 256 symbols perturbed), 64 of them checked
-   bitwise against the plain top-k; then an L1 table (k = 10 and k = 300,
-   the dense tier) and a ternary table with ``matches=16``;
-4. at the service's shape (Q = 64, N = 2^20, D = 256): each kernel held
-   bitwise against its plain version once more, then timed with CUDA
-   events beside its bound, its plain version and, for the dense kernel,
-   ``torch.cdist(p=0)``; and the service's lookups/s and queue waits.
+   bitwise against the plain top-k; then an L1 table at k = 10 and at
+   k = 300 (the dense tier) and a ternary table with ``matches=16``.  Each
+   of these four paths runs with the launch counts set to 0 just before it
+   and read just after, and must launch its kernel once per group;
+4. each kernel held bitwise against its plain version and timed with CUDA
+   events at every bucket shape its path dispatched (the fused kernel at
+   the k = 10 service path's, the dense one at the L1 k = 300 path's),
+   beside its bound, its plain version and, for the dense kernel,
+   ``torch.cdist(p=0)``; also at Q = 64, and at Q <= 16 with 16- and with
+   64-query blocks; and the service's lookups/s and queue waits.
 
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``; the build goes to ``build/repro_torch/``.
@@ -30,6 +34,7 @@ It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -138,29 +143,49 @@ def phase_kernels():
             thr = torch.from_numpy(
                 rng.integers(0, d // 2, (qn, 1)).astype(np.float32)).to(dev)
         # dense tier
-        got = ops.mismatch_counts(t_q, t_t, bits, care=t_c)
         want = ref.mismatch_counts(t_q, t_t, t_c)
-        torch.cuda.synchronize()
-        check(got.dtype == torch.int32 and got.shape == (qn, codes.shape[0]),
-              f"{name}: dense dtype/shape {got.dtype} {tuple(got.shape)}")
-        diff = (got.long() - want.long()).abs().max().item()
-        err["cam_search"] = max(err["cam_search"], float(diff))
-        check(diff == 0, f"{name}: cam_search differs from plain by {diff}")
+        for tile in _tiles(qn):
+            with _query_tile(tile):
+                got = ops.mismatch_counts(t_q, t_t, bits, care=t_c)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.int32
+                  and got.shape == (qn, codes.shape[0]),
+                  f"{name}: dense dtype/shape {got.dtype} {tuple(got.shape)}")
+            diff = (got.long() - want.long()).abs().max().item()
+            err["cam_search"] = max(err["cam_search"], float(diff))
+            check(diff == 0,
+                  f"{name}/{tile}: cam_search differs from plain by {diff}")
         # fused tier
-        got = ops.topk_fused(t_q, t_t, k, bits, valid_rows=vr, care=t_c,
-                             count_le=thr)
         want = ref.topk(t_q, t_t, k, valid_rows=vr, care=t_c, count_le=thr)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]),
-              f"{name}: cam_search_topk rows differ from plain")
-        check(torch.equal(got[1], want[1]),
-              f"{name}: cam_search_topk distances differ from plain")
-        if counted:
-            check(torch.equal(got[2], want[2]),
-                  f"{name}: cam_search_topk counts differ from plain")
+        for tile in _tiles(qn):
+            with _query_tile(tile):
+                got = ops.topk_fused(t_q, t_t, k, bits, valid_rows=vr,
+                                     care=t_c, count_le=thr)
+            torch.cuda.synchronize()
+            for part, g, w in zip(("rows", "distances", "counts"), got, want):
+                check(torch.equal(g, w), f"{name}/{tile}: cam_search_topk "
+                      f"{part} differ from plain")
         print(f"  {name}: Q={qn} N={codes.shape[0]} D={codes.shape[1]} "
-              f"k={k} bitwise equal")
+              f"k={k} bitwise equal (query tiles {_tiles(qn)})")
     return err
+
+
+def _tiles(qn):
+    """Query tiles a batch of ``qn`` queries takes: 16 or 64, and for a
+    small batch also the 64-query tile the wrapper passes over."""
+    return (16, 64) if qn <= 16 else (64,)
+
+
+@contextlib.contextmanager
+def _query_tile(tile):
+    """Make the kernel wrappers use ``tile``-query blocks (16 or 64)."""
+    from repro_torch.kernels.cam_search import kernel
+    saved = kernel.SMALL_TILE_MAX_Q
+    kernel.SMALL_TILE_MAX_Q = saved if tile == 16 else 0
+    try:
+        yield
+    finally:
+        kernel.SMALL_TILE_MAX_Q = saved
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +199,45 @@ def _perturb(rng, word, n_sym, levels):
     return out
 
 
+def _drive(svc, path, table, queries, **kw):
+    """One path: submit ``queries`` to ``table`` and wait for them all.
+
+    The launch counts are set to 0 just before the first submit and read
+    just after the last lookup resolved, so they are this path's alone; the
+    groups it dispatched are read from the table's bucket counts.  Each
+    group is one search, which launches one kernel: the fused one, or the
+    dense one for k above 256.
+    """
+    from repro_torch.core import am
+    from repro_torch.kernels.cam_search import kernel
+    check(svc.drain(timeout=600), f"{path}: driver busy before the path")
+    before = svc.stats(table)["buckets"]
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    futs = [svc.submit(table, q, **kw) for q in queries]
+    check(svc.drain(timeout=600), f"{path}: driver did not drain")
+    seconds = time.perf_counter() - t0
+    launches = dict(kernel.launches)
+    after = svc.stats(table)["buckets"]
+    buckets = {b: n - before.get(b, 0) for b, n in sorted(after.items())
+               if n > before.get(b, 0)}
+    groups = sum(buckets.values())
+    tier = ("cam_search" if kw.get("k", 1) > am.FUSED_K_MAX
+            else "cam_search_topk")
+    want = {name: groups if name == tier else 0 for name in launches}
+    check(launches == want, f"{path}: launches {launches}, expected {want} "
+          f"for {groups} groups")
+    print(f"  {path}: {len(queries)} lookups, {groups} groups "
+          f"(buckets {buckets}), launches {launches}, {seconds:.3f} s")
+    return futs, {"table": table, **kw, "lookups": len(queries),
+                  "seconds": seconds, "launches": launches,
+                  "buckets": buckets}
+
+
 def phase_service():
     import torch
     from repro_torch.core import am
-    from repro_torch.kernels.cam_search import kernel, ref
+    from repro_torch.kernels.cam_search import ref
     from repro_torch.serve import AMService
 
     rng = np.random.default_rng(SEED + 1)
@@ -222,26 +282,20 @@ def phase_service():
         t_queries[i][-8:] = (t_queries[i][-8:] + 1) % (1 << BITS)
     torch.cuda.synchronize()
 
-    # -- the main path: counts zeroed just before, read just after ----------
-    kernel.reset_launches()
+    # -- the slice's paths, each with its own launch counts -----------------
     svc.start_driver(max_in_flight=2)
-    t0 = time.perf_counter()
-    futs = [svc.submit("responses", q, k=K) for q in queries]
-    check(svc.drain(timeout=600), "driver did not drain the lookups")
-    main_s = time.perf_counter() - t0
+    paths = {}
+    futs, paths["responses_k10"] = _drive(svc, "responses_k10", "responses",
+                                          queries, k=K)
     main_stats = svc.stats()
-    fused_main = kernel.launches["cam_search_topk"]
-    l1_futs = [svc.submit("l1", l1_codes[r], k=K) for r in l1_rows]
-    l1_dense = [svc.submit("l1", l1_codes[r], k=300) for r in l1_rows[:4]]
-    t_futs = [svc.submit("tcam", q, matches=16) for q in t_queries]
-    check(svc.drain(timeout=600), "driver did not drain the small tables")
+    l1_futs, paths["l1_k10"] = _drive(svc, "l1_k10", "l1",
+                                      l1_codes[l1_rows], k=K)
+    l1_dense, paths["l1_k300"] = _drive(svc, "l1_k300", "l1",
+                                        l1_codes[l1_rows[:4]], k=300)
+    t_futs, paths["tcam_m16"] = _drive(svc, "tcam_m16", "tcam", t_queries,
+                                       matches=16)
     svc.stop_driver()
-    launches = dict(kernel.launches)
-    # -- end of the main path ------------------------------------------------
 
-    check(fused_main > 0, "fused kernel never launched by the service")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path was never launched: {launches}")
     resp = [f.result() for f in futs]
     for i, (r, e) in enumerate(zip(rows, exact)):
         check(resp[i].best_row == r,
@@ -282,17 +336,18 @@ def phase_service():
           f"tcam exact word: {exact_t.match_count} matches")
 
     s = main_stats
+    main_s = paths["responses_k10"]["seconds"]
     print(f"  service: {LOOKUPS} lookups in {main_s:.3f} s, "
           f"readbacks={s['readbacks']} flushes={s['flushes']} "
           f"dedup_hits={s['dedup_hits']} compilations={s['compilations']} "
           f"fused_fallbacks={svc.stats()['fused_fallbacks']}")
-    print(f"  launches on the main path: {launches}")
     service = {"lookups": LOOKUPS, "seconds": main_s,
                "lookups_per_s": LOOKUPS / main_s,
                "queue_wait_p50_s": s["queue_wait_p50"],
                "queue_wait_p99_s": s["queue_wait_p99"],
                "groups": s["readbacks"], "fill_s": fill_s}
-    return svc, launches, service
+    return {"svc": svc, "paths": paths, "service": service,
+            "queries": queries, "l1_queries": l1_codes[l1_rows[:4]]}
 
 
 # ---------------------------------------------------------------------------
@@ -315,65 +370,174 @@ def _time_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
-def _bound(bytes_moved, ops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def _timed_once(fn):
+    """(ms, result) of one call, timed with CUDA events."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
 
 
-def phase_timing(svc, launches, err):
+def _bound_parts(bytes_moved, ops):
+    """(ms at the memory rate, ms at the int8 operation rate)."""
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+
+
+def _time_dense(q8, t8, levels, groups, err):
+    """One shape of the dense kernel: held against plain, then timed, with
+    ``torch.cdist(p=0)`` on float copies as the library call."""
     import torch
     from repro_torch.kernels.cam_search import kernel, ref
-    codes = svc._tables["responses"].table.codes          # (2^20, 256) int32
-    n, d = codes.shape
-    qn = 64
-    t8 = codes.to(torch.int8)
-    q8 = t8[torch.arange(qn, device=t8.device) * 997].contiguous()
-    vr = torch.full((1,), ROWS, dtype=torch.int32, device=t8.device)
-    cast_ms = _time_ms(lambda: codes.to(torch.int8), 10)
-
-    # each kernel against its plain version at the timed shape
-    got = kernel.cam_search(q8, t8, levels=1 << BITS)
-    diff = (got.long() - ref.mismatch_counts(q8, t8).long()).abs().max()
-    err["cam_search"] = max(err["cam_search"], float(diff.item()))
-    check(diff.item() == 0, f"cam_search differs from plain by {diff}")
-    del got
-    got = kernel.cam_search_topk(q8, t8, vr, levels=1 << BITS, k=K)
-    want = ref.topk(q8, t8, K, valid_rows=vr)
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          "cam_search_topk differs from plain at the timed shape")
-
-    dense_ms = _time_ms(lambda: kernel.cam_search(q8, t8, levels=1 << BITS),
-                        10)
-    dense_plain = _time_ms(lambda: ref.mismatch_counts(q8, t8), 3, 1)
+    (qn, d), n = q8.shape, t8.shape[0]
+    plain_ms, want = _timed_once(lambda: ref.mismatch_counts(q8, t8))
+    got = kernel.cam_search(q8, t8, levels=levels)
+    diff = float((got.long() - want.long()).abs().max().item())
+    err["cam_search"] = max(err["cam_search"], diff)
+    check(diff == 0, f"cam_search differs from plain by {diff} at "
+          f"Q={qn} N={n} D={d}")
+    del got, want
+    ms = _time_ms(lambda: kernel.cam_search(q8, t8, levels=levels), 10)
     qf, tf = q8.float(), t8.float()
-    cdist_ms = _time_ms(lambda: torch.cdist(qf, tf, p=0), 5, 1)
+    lib_ms = _time_ms(lambda: torch.cdist(qf, tf, p=0), 5, 1)
     del qf, tf
-    fused_ms = _time_ms(lambda: kernel.cam_search_topk(
-        q8, t8, vr, levels=1 << BITS, k=K), 10)
-    fused_plain = _time_ms(lambda: ref.topk(q8, t8, K, valid_rows=vr), 3, 1)
+    t_b, t_o = _bound_parts(qn * d + n * d + qn * n * 4, qn * n * d)
+    return {"Q": qn, "N": n, "D": d, "groups": groups, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bytes_ms": t_b, "ops_ms": t_o}
 
-    ops = qn * n * d
-    b_dense, by_dense = _bound(qn * d + n * d + qn * n * 4, ops)
-    b_fused, by_fused = _bound(qn * d + n * d + 4 + qn * K * 8, ops)
-    src = "src/repro_torch/csrc/cam_search.cu"
+
+def _time_fused(q8, t8, vr, levels, k, groups, err):
+    """One shape of the fused kernel: held against plain, then timed.  Its
+    bound counts the live rows only, the ones the result depends on."""
+    import torch
+    from repro_torch.kernels.cam_search import kernel, ref
+    (qn, d), n = q8.shape, t8.shape[0]
+    plain_ms, want = _timed_once(lambda: ref.topk(q8, t8, k, valid_rows=vr))
+    got = kernel.cam_search_topk(q8, t8, vr, levels=levels, k=k)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"cam_search_topk differs from plain at Q={qn} N={n} D={d} k={k}")
+    del got, want
+    ms = _time_ms(lambda: kernel.cam_search_topk(q8, t8, vr, levels=levels,
+                                                 k=k), 10)
+    live = int(vr.item())
+    t_b, t_o = _bound_parts(qn * d + live * d + 4 + qn * k * 8,
+                            qn * live * d)
+    return {"Q": qn, "N": n, "D": d, "k": k, "groups": groups, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bytes_ms": t_b, "ops_ms": t_o}
+
+
+def _tile_ms(fn):
+    """The kernel call ``fn`` timed with 16- and with 64-query blocks."""
+    out = {}
+    for tile in (16, 64):
+        with _query_tile(tile):
+            out[f"ms_tile{tile}"] = _time_ms(fn, 10)
+    return out
+
+
+def _row(name, replaces, path, paths, shapes, err):
+    """One kernel's line.  ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` are means over the groups that ``path`` dispatched, each
+    group's shape timed alone; ``launches`` sums the counts of every path,
+    and ``launches_by_path`` gives each."""
+    main = [s for s in shapes if s["groups"]]
+    g = sum(s["groups"] for s in main)
+
+    def mean(key):
+        return sum(s[key] * s["groups"] for s in main) / g
+
+    t_b, t_o = mean("bytes_ms"), mean("ops_ms")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/cam_search.cu",
+            "replaces": replaces,
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "max_abs_err": err[name], "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": (None if main[0]["library_ms"] is None
+                           else mean("library_ms")),
+            "timed_path": path,
+            "launches_by_path": {p: v["launches"][name]
+                                 for p, v in paths.items()},
+            "shapes": shapes}
+
+
+def phase_timing(run, err):
+    import torch
+    from repro_torch.core import am
+    from repro_torch.kernels.cam_search import kernel
+    svc, paths = run["svc"], run["paths"]
+    levels = 1 << BITS
+    codes = svc._tables["responses"].table.codes          # (2^20, 256) int32
+    t8 = codes.to(torch.int8)
+    dev = t8.device
+    vr = torch.full((1,), ROWS, dtype=torch.int32, device=dev)
+    cast_ms = _time_ms(lambda: codes.to(torch.int8), 10)
+    order = np.random.default_rng(SEED + 2).permutation(LOOKUPS)
+    q_all = torch.from_numpy(np.stack(run["queries"])[order]).to(dev)
+
+    def batch(qn):
+        return q_all[:qn].to(torch.int8).contiguous()
+
+    # fused kernel: each bucket size the main path dispatched, then Q = 64
+    # and the small batches, these also with 64-query blocks
+    buckets = paths["responses_k10"]["buckets"]
+    fused = [_time_fused(batch(qb), t8, vr, levels, K, n, err)
+             for qb, n in buckets.items()]
+    if 64 not in buckets:
+        fused.append(_time_fused(batch(64), t8, vr, levels, K, 0, err))
+    for qn in (1, 4, 16):
+        q8 = batch(qn)
+        shape = _time_fused(q8, t8, vr, levels, K, 0, err)
+        shape.update(_tile_ms(lambda: kernel.cam_search_topk(
+            q8, t8, vr, levels=levels, k=K)))
+        fused.append(shape)
+
+    # dense kernel: the L1 k = 300 path's thermometer-expanded table (its
+    # queries padded to the bucket as the service pads them), then the
+    # responses table at Q = 64
+    l1_codes = svc._tables["l1"].table.codes                # (65536, 256)
+    l1_expand_ms = _time_ms(
+        lambda: am.thermometer(l1_codes, BITS).to(torch.int8), 5)
+    l1_t8 = am.thermometer(l1_codes, BITS).to(torch.int8)
+    l1_q = am.thermometer(torch.from_numpy(run["l1_queries"]).to(dev),
+                          BITS).to(torch.int8)
+    dense = []
+    for qb, n in paths["l1_k300"]["buckets"].items():
+        q8 = torch.zeros((qb, l1_q.shape[1]), dtype=torch.int8, device=dev)
+        q8[:min(qb, l1_q.shape[0])] = l1_q[:qb]
+        shape = _time_dense(q8, l1_t8, 2, n, err)
+        if qb <= 16:
+            shape.update(_tile_ms(lambda: kernel.cam_search(
+                q8, l1_t8, levels=2)))
+        dense.append(shape)
+    del l1_t8
+    dense.append(_time_dense(batch(64), t8, levels, 0, err))
+
     rows = [
-        {"name": "cam_search", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/cam_search/kernel.py:114",
-         "launches": launches["cam_search"],
-         "max_abs_err": err["cam_search"], "ms": dense_ms,
-         "plain_ms": dense_plain, "bound_ms": b_dense, "bound_by": by_dense,
-         "library_ms": cdist_ms},
-        {"name": "cam_search_topk", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/cam_search/kernel.py:402",
-         "launches": launches["cam_search_topk"],
-         "max_abs_err": err["cam_search_topk"], "ms": fused_ms,
-         "plain_ms": fused_plain, "bound_ms": b_fused, "bound_by": by_fused,
-         "library_ms": None},
+        _row("cam_search", "src/repro/kernels/cam_search/kernel.py:114",
+             "l1_k300", paths, dense, err),
+        _row("cam_search_topk", "src/repro/kernels/cam_search/kernel.py:402",
+             "responses_k10", paths, fused, err),
     ]
-    print(f"  shape: Q={qn} N={n} D={d} k={K}; int32->int8 table cast "
-          f"{cast_ms:.4f} ms per call")
-    return rows, cast_ms
+    for r in rows:
+        for s in r["shapes"]:
+            tiles = "".join(f" {key}={s[key]:.4f}" for key in s
+                            if key.startswith("ms_tile"))
+            print(f"  {r['name']}: Q={s['Q']} N={s['N']} D={s['D']} "
+                  f"groups={s['groups']} ms={s['ms']:.4f} "
+                  f"plain_ms={s['plain_ms']:.2f}{tiles}")
+    kernel_ms = sum(s["ms"] * s["groups"] for s in fused)
+    print(f"  int32->int8 table cast {cast_ms:.4f} ms per call; L1 "
+          f"thermometer expansion + cast {l1_expand_ms:.4f} ms per search; "
+          f"fused kernel time of the main path {kernel_ms:.2f} ms")
+    return rows, {"table_cast_ms": cast_ms, "l1_expand_ms": l1_expand_ms,
+                  "main_path_kernel_ms": kernel_ms}
 
 
 def main() -> int:
@@ -391,12 +555,13 @@ def main() -> int:
         print("phase 2: kernels against their plain versions")
         err = phase_kernels()
         print("phase 3: the service at full size")
-        svc, launches, service = phase_service()
+        run = phase_service()
         print("phase 4: timing")
-        rows, cast_ms = phase_timing(svc, launches, err)
-        service["table_cast_ms"] = cast_ms
+        rows, costs = phase_timing(run, err)
+        service = {**run["service"], **costs}
         print(card)
-        print(json.dumps({"kernels": rows, "service": service}))
+        print(json.dumps({"kernels": rows, "service": service,
+                          "paths": run["paths"]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -369,21 +369,21 @@ cudaError_t launch_partial_bq(bool masked, bool counted, const int8_t* q,
 
 }  // namespace
 
-// Small query batches take 16-query tiles, larger ones 64-query tiles.
-static bool small_tile(int Q) { return Q <= 16; }
-
 // (Q, D) queries, (N, D) table [, (N, D) care] int8 -> (Q, N) int32.
-// Pointers are device pointers; `care` may be null.  Returns the CUDA
-// error code of the launch (0 on success).
+// Pointers are device pointers; `care` may be null.  `tile_q` (16 or 64)
+// is the queries per block.  Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int cam_search_launch(const void* q, const void* t,
                                  const void* care, void* out, int Q, int N,
-                                 int D, int levels, void* stream) {
+                                 int D, int levels, int tile_q,
+                                 void* stream) {
+  if (tile_q != 16 && tile_q != 64) return (int)cudaErrorInvalidValue;
   const auto* qp = static_cast<const int8_t*>(q);
   const auto* tp = static_cast<const int8_t*>(t);
   const auto* cp = static_cast<const int8_t*>(care);
   auto* op = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (small_tile(Q))
+  if (tile_q == 16)
     return cp ? launch_dense<16, true>(qp, tp, cp, op, Q, N, D, levels, s)
               : launch_dense<16, false>(qp, tp, cp, op, Q, N, D, levels, s);
   return cp ? launch_dense<64, true>(qp, tp, cp, op, Q, N, D, levels, s)
@@ -393,13 +393,15 @@ extern "C" int cam_search_launch(const void* q, const void* t,
 // Fused top-k, both passes.  `care` and `count_le` may be null; with
 // `count_le`, `part_counts` ((Q, splits) int32) and `out_count` ((Q,)
 // int32) must be given.  `part_keys` is (Q, splits, k) uint64 scratch.
-// `valid_rows` is a device int32 the kernel reads itself.
+// `valid_rows` is a device int32 the kernel reads itself.  `tile_q` (16
+// or 64) is the queries per block of pass 1.
 extern "C" int cam_search_topk_launch(
     const void* q, const void* t, const void* care, const void* valid_rows,
     const void* count_le, void* part_keys, void* part_counts, void* out_idx,
     void* out_dist, void* out_count, int Q, int N, int D, int levels, int k,
-    int splits, int rows_per_split, void* stream) {
-  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+    int splits, int rows_per_split, int tile_q, void* stream) {
+  if (k < 1 || k > MAX_K || (tile_q != 16 && tile_q != 64))
+    return (int)cudaErrorInvalidValue;
   const auto* qp = static_cast<const int8_t*>(q);
   const auto* tp = static_cast<const int8_t*>(t);
   const auto* cp = static_cast<const int8_t*>(care);
@@ -410,7 +412,7 @@ extern "C" int cam_search_topk_launch(
   auto s = static_cast<cudaStream_t>(stream);
   const bool masked = cp != nullptr, counted = thr != nullptr;
   cudaError_t err =
-      small_tile(Q)
+      tile_q == 16
           ? launch_partial_bq<16>(masked, counted, qp, tp, cp, vr, thr, pk, pc,
                                   Q, N, D, levels, k, splits, rows_per_split,
                                   s)

@@ -38,6 +38,11 @@ _BN = 128
 #: D must be a multiple of this (16-byte vector loads); the ops layer pads.
 D_MULTIPLE = 16
 
+#: Batches of at most this many queries take 16-query blocks, larger ones
+#: 64-query blocks (the source's two ``BQ`` instantiations).  0 sends every
+#: batch to 64-query blocks, which is how ``chip_smoke.py`` compares them.
+SMALL_TILE_MAX_Q = 16
+
 #: Wrapper calls that launched their kernel, by kernel name.
 launches = {"cam_search": 0, "cam_search_topk": 0}
 
@@ -59,9 +64,9 @@ def _count(name: str) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("cam_search")
     if not hasattr(lib, "_repro_bound"):
-        lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 4 + [_VP]
+        lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 5 + [_VP]
         lib.cam_search_launch.restype = _I
-        lib.cam_search_topk_launch.argtypes = [_VP] * 10 + [_I] * 7 + [_VP]
+        lib.cam_search_topk_launch.argtypes = [_VP] * 10 + [_I] * 8 + [_VP]
         lib.cam_search_topk_launch.restype = _I
         lib._repro_bound = True
     return lib
@@ -111,16 +116,22 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _tile(qn: int) -> int:
+    """Queries per block of a batch of ``qn``."""
+    return 16 if qn <= SMALL_TILE_MAX_Q else 64
+
+
 def cam_search(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
                care: torch.Tensor | None = None) -> torch.Tensor:
     """(Q, D) x (N, D) int8 [+ (N, D) int8 care] -> (Q, N) int32 mismatches."""
     qn, n, d, dev = _check_inputs(queries, table, care)
+    bq = _tile(qn)
     out = torch.empty((qn, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().cam_search_launch(
             queries.data_ptr(), table.data_ptr(), _ptr(care), out.data_ptr(),
-            qn, n, d, levels, stream)
+            qn, n, d, levels, bq, stream)
     _raise_on(err, "cam_search")
     _count("cam_search")
     return out
@@ -152,8 +163,8 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
         _check("count_le", count_le, torch.float32, (qn, 1), dev)
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} outside [1, min(N={n}, {MAX_K})]")
-    q_tiles = -(-qn // (16 if qn <= 16 else 64))
-    splits, rows_per_split = _splits(q_tiles, n, dev)
+    bq = _tile(qn)
+    splits, rows_per_split = _splits(-(-qn // bq), n, dev)
     part_keys = torch.empty((qn, splits, k), dtype=torch.int64, device=dev)
     idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
     dist = torch.empty((qn, k), dtype=torch.float32, device=dev)
@@ -167,7 +178,7 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
             queries.data_ptr(), table.data_ptr(), _ptr(care),
             valid_rows.data_ptr(), _ptr(count_le), part_keys.data_ptr(),
             _ptr(part_counts), idx.data_ptr(), dist.data_ptr(), _ptr(count),
-            qn, n, d, levels, k, splits, rows_per_split, stream)
+            qn, n, d, levels, k, splits, rows_per_split, bq, stream)
     _raise_on(err, "cam_search_topk")
     _count("cam_search_topk")
     if count_le is None:

@@ -230,6 +230,8 @@ class _TableState:
     rejected: int = 0
     shed: int = 0
     blocked: int = 0                   # submits that had to wait
+    # dispatched groups by power-of-two bucket size
+    buckets: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -871,14 +873,8 @@ class AMService:
         q = len(uniq)
         self.dispatched += len(futs)
         self.dedup_hits += len(futs) - q
-        # The search silently takes the dense O(Q*N) path when the window
-        # exceeds am.FUSED_K_MAX although the backend has a fused tier.
-        be = am._resolve_backend(t.backend)
-        k_eff = min(matches if matches is not None else k, t.table.n_rows)
-        if (be.fused is not None and k_eff > am.FUSED_K_MAX
-                and (matches is None or be.fused_count)):
-            self.fused_fallbacks += 1
         qb = _next_pow2(q)
+        t.buckets[qb] = t.buckets.get(qb, 0) + 1
         queries = np.zeros((qb, t.table.width), np.int32)
         for i, fut in enumerate(uniq):
             queries[i] = fut.request.query
@@ -891,8 +887,13 @@ class AMService:
         self._signatures.add((qb, k, backend, has_thr, matches,
                               tuple(tab.codes.shape), tab.bits, tab.distance,
                               tab.care is not None))
+        # am.search counts each dense-tier fallback of a fused backend; the
+        # lock serialises this service's dispatches, so the delta is this
+        # group's unless another thread searches at the same moment
+        before = am.fused_fallbacks()
         out = self._dispatch(tab, _to_device(queries, self.device), t.n, q,
                              thr, now, k=k, backend=backend, matches=matches)
+        self.fused_fallbacks += am.fused_fallbacks() - before
         *arrays, new_meta = out
         host = tuple(_to_host(a) for a in arrays)
         event = None
@@ -1045,6 +1046,7 @@ class AMService:
                     "qps_budget": t.qps_budget, "max_queue": t.max_queue,
                     "rejected": t.rejected, "shed": t.shed,
                     "blocked": t.blocked,
+                    "buckets": dict(t.buckets),
                 }
             waits = np.asarray(self._wait_samples, np.float64)
             p50, p99 = (np.percentile(waits, [50, 99]) if waits.size

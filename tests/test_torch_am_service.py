@@ -128,6 +128,48 @@ def test_admission_modes_match_reference():
     assert run(_port(), "ref") == run(JaxService(), "ref")
 
 
+def test_fused_fallbacks_match_reference():
+    """Windows above FUSED_K_MAX take the dense tier; the service counts
+    each such group as the reference does (ternary multi-match included)."""
+    def run(svc):
+        rng = np.random.default_rng(5)
+        codes = rng.integers(0, 8, (300, WIDTH)).astype(np.int32)
+        svc.create_table("t", width=WIDTH, bits=3, capacity=320,
+                         backend="cuda" if isinstance(svc, AMService)
+                         else "pallas")
+        svc.create_table("tc", width=WIDTH, bits=3, capacity=320,
+                         ternary=True, backend="cuda"
+                         if isinstance(svc, AMService) else "pallas")
+        svc.append("t", codes)
+        svc.append("tc", codes, care=np.ones_like(codes))
+        out = []
+        for k, m in ((10, None), (257, None), (300, None), (None, 256),
+                     (None, 290)):
+            for q in codes[:2]:
+                if m is None:
+                    svc.submit("t", q, k=k)
+                else:
+                    svc.submit("tc", q, matches=m)
+            svc.flush()
+            out.append(svc.stats()["fused_fallbacks"])
+        return out
+
+    got, want = run(_port()), run(JaxService())
+    assert got == want == [0, 1, 2, 2, 3]
+
+
+def test_bucket_counts():
+    """stats(name)["buckets"] counts dispatched groups by padded size."""
+    svc = _port()
+    svc.create_table("t", width=WIDTH, bits=3, capacity=16, backend="cuda")
+    svc.append("t", np.arange(4 * WIDTH).reshape(4, WIDTH) % 8)
+    for n in (3, 4, 1, 5):
+        for i in range(n):
+            svc.submit("t", np.full((WIDTH,), i % 8))
+        svc.flush()
+    assert svc.stats("t")["buckets"] == {4: 2, 1: 1, 8: 1}
+
+
 def test_one_signature_per_bucket():
     """The port counts dispatch signatures as the reference counts jit
     compilations (tests/test_am_service.py's sequence, same numbers)."""

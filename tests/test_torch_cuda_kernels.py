@@ -25,13 +25,17 @@ def dev():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("small_tile_max_q", [16, 0])
 @pytest.mark.parametrize("bits,qn,n,d,care,k,valid_rows", [
     (1, 3, 700, 24, False, 256, None),
     (3, 40, 5000, 200, True, 10, 4321),
     (3, 80, 999, 16, False, 1, 3),
+    (3, 16, 3000, 64, True, 10, 2999),
 ])
-def test_kernels_bitwise_against_plain(dev, bits, qn, n, d, care, k,
-                                       valid_rows):
+def test_kernels_bitwise_against_plain(dev, monkeypatch, small_tile_max_q,
+                                       bits, qn, n, d, care, k, valid_rows):
+    # 0 sends small batches to the 64-query blocks as well
+    monkeypatch.setattr(kernel, "SMALL_TILE_MAX_Q", small_tile_max_q)
     rng = np.random.default_rng(n)
     t = torch.from_numpy(rng.integers(0, 1 << bits, (n, d))).to(dev)
     q = torch.from_numpy(rng.integers(0, 1 << bits, (qn, d))).to(dev)
