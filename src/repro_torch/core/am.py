@@ -27,9 +27,10 @@ matrix, and :func:`search` uses it for ``k <= FUSED_K_MAX``.  Both tiers
 are bitwise-identical, ordered by ascending (distance, row index) with the
 lowest row winning every tie, +inf masked rows included.  The **masked**
 tier adds ternary care planes, and ``fused_count`` an in-kernel threshold
-count for multi-match.  The reference's analog backends come with the
-device model, and its sharded search with multi-bank sharding, in later
-port slices.
+count for multi-match.  ``"analog"`` and ``"analog_cal"`` run the
+behavioural FeFET circuit model (:func:`make_analog_backend`), dense tier
+only.  The reference's sharded search comes with multi-bank sharding in a
+later port slice.
 
 Distance units: ``"hamming"`` counts differing symbols; ``"l1"`` is the
 level distance ``sum_d |q_d - t_d|``, realised for digital backends by
@@ -45,6 +46,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core import fefet, mibo
 from repro_torch.device import resolve_device
 
 #: Distances below this are exact word matches (half of one LSB mismatch).
@@ -432,9 +434,67 @@ def _cuda_fused_backend(queries, codes, bits, distance, *, k, valid_rows,
                               count_le=count_le)
 
 
+def make_analog_backend(generator: torch.Generator | None = None,
+                        params: fefet.FeFETParams = fefet.DEFAULT,
+                        calibrated: bool = False) -> BackendFn:
+    """Build an analog (device-model) backend, optionally with V_TH variation.
+
+    ``"hamming"`` counts cells whose MIBO node D charged; ``"l1"`` reports the
+    graded matchline discharge current in LSB-mismatch units
+    (:func:`repro_torch.core.mibo.lsb_mismatch_current`), the paper's analog
+    nearest-match ranking.  The registered ``"analog"`` backend is this with
+    no variation; register a generator-driven instance for robustness
+    studies::
+
+        am.register_backend("analog_mc", am.make_analog_backend(gen))
+
+    The generator's state is captured here, and every call draws the two
+    (rows, cells) noise planes from a copy of it, so one backend instance
+    always sees the same variation realisation for the same table shape —
+    a fixed programmed array, as the reference's keyed backend is.  The
+    generator must live on the device of the tables it searches.
+
+    With ``calibrated=True`` the ``"l1"`` readout is inverted through the
+    affine overdrive-response fit
+    (:func:`repro_torch.core.mibo.overdrive_response_fit`): a matchline
+    discharge ``i_ml ~= a * mismatches + b * L1`` maps back to the
+    digital-equivalent level distance ``(i_ml - a * mismatches) / b``, so
+    analog thresholds compare directly with digital ones (the registered
+    ``"analog_cal"`` backend).
+
+    Returns:
+      A dense-tier :data:`BackendFn`.
+    """
+    state = None if generator is None else generator.get_state()
+
+    def _backend(queries, codes, bits, distance):
+        from repro_torch.core import cam_array
+        noise1 = noise2 = None
+        if state is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+            noise1 = fefet.sample_vth_variation(gen, tuple(codes.shape),
+                                                params, device=codes.device)
+            noise2 = fefet.sample_vth_variation(gen, tuple(codes.shape),
+                                                params, device=codes.device)
+        mismatch, i_ml = cam_array.analog_search_batch(
+            codes, queries, bits, noise1, noise2, params)
+        if distance == "hamming":
+            return mismatch
+        if calibrated:
+            a, b = mibo.overdrive_response_fit(bits, params)
+            return (i_ml - a * mismatch) / b
+        return i_ml / mibo.lsb_mismatch_current(bits, params,
+                                                device=codes.device)
+
+    return _backend
+
+
 register_backend("ref", _ref_backend, masked=True)
 register_backend("cuda", _cuda_backend, fused=_cuda_fused_backend,
                  masked=True, fused_count=True)
+register_backend("analog", make_analog_backend())
+register_backend("analog_cal", make_analog_backend(calibrated=True))
 
 
 # ---------------------------------------------------------------------------

@@ -18,3 +18,14 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def device_of(*xs, device=None) -> torch.device:
+    """Where a function of ``xs`` runs: ``device`` if given, else the
+    device of the first tensor among ``xs``, else the GPU (as
+    :func:`resolve_device`)."""
+    if device is None:
+        for x in xs:
+            if isinstance(x, torch.Tensor):
+                return x.device
+    return resolve_device(device)

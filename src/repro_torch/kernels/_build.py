@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 #: Every kernel source of the port, by library name.
-SOURCES = ("cam_search",)
+SOURCES = ("cam_search", "hdc_encode", "mibo_mc")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -23,11 +23,11 @@ first launch, never at import.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import LaunchCounts, check, raise_on, stream
 
 #: Largest ``k`` :func:`cam_search_topk` takes.
 MAX_K = 256
@@ -44,21 +44,10 @@ D_MULTIPLE = 16
 SMALL_TILE_MAX_Q = 16
 
 #: Wrapper calls that launched their kernel, by kernel name.
-launches = {"cam_search": 0, "cam_search_topk": 0}
+launches = LaunchCounts("cam_search", "cam_search_topk")
+reset_launches = launches.reset
 
-_lock = threading.Lock()
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def reset_launches() -> None:
-    """Set every launch count to 0."""
-    for name in launches:
-        launches[name] = 0
-
-
-def _count(name: str) -> None:
-    with _lock:
-        launches[name] += 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -72,19 +61,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(x.shape)} != {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+def _check16(name, x, dtype, shape, device):
+    check(name, x, dtype, shape, device, align=16)
 
 
 def _check_inputs(queries, table, care):
@@ -95,10 +73,10 @@ def _check_inputs(queries, table, care):
     qn, d = queries.shape
     n = table.shape[0]
     dev = queries.device
-    _check("queries", queries, torch.int8, (qn, d), dev)
-    _check("table", table, torch.int8, (n, d), dev)
+    _check16("queries", queries, torch.int8, (qn, d), dev)
+    _check16("table", table, torch.int8, (n, d), dev)
     if care is not None:
-        _check("care", care, torch.int8, (n, d), dev)
+        _check16("care", care, torch.int8, (n, d), dev)
     if qn < 1 or n < 1:
         raise ValueError(f"need at least one query and one row, got Q={qn}, "
                          f"N={n}")
@@ -109,11 +87,6 @@ def _check_inputs(queries, table, care):
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
 def _tile(qn: int) -> int:
@@ -128,12 +101,11 @@ def cam_search(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
     bq = _tile(qn)
     out = torch.empty((qn, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().cam_search_launch(
             queries.data_ptr(), table.data_ptr(), _ptr(care), out.data_ptr(),
-            qn, n, d, levels, bq, stream)
-    _raise_on(err, "cam_search")
-    _count("cam_search")
+            qn, n, d, levels, bq, stream(dev))
+    raise_on(err, "cam_search")
+    launches.add("cam_search")
     return out
 
 
@@ -158,9 +130,9 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
     counts the rows at distance <= threshold.  ``1 <= k <= min(N, 256)``.
     """
     qn, n, d, dev = _check_inputs(queries, table, care)
-    _check("valid_rows", valid_rows, torch.int32, (1,), dev)
+    _check16("valid_rows", valid_rows, torch.int32, (1,), dev)
     if count_le is not None:
-        _check("count_le", count_le, torch.float32, (qn, 1), dev)
+        _check16("count_le", count_le, torch.float32, (qn, 1), dev)
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} outside [1, min(N={n}, {MAX_K})]")
     bq = _tile(qn)
@@ -173,14 +145,14 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
         part_counts = torch.empty((qn, splits), dtype=torch.int32, device=dev)
         count = torch.empty((qn,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().cam_search_topk_launch(
             queries.data_ptr(), table.data_ptr(), _ptr(care),
             valid_rows.data_ptr(), _ptr(count_le), part_keys.data_ptr(),
             _ptr(part_counts), idx.data_ptr(), dist.data_ptr(), _ptr(count),
-            qn, n, d, levels, k, splits, rows_per_split, bq, stream)
-    _raise_on(err, "cam_search_topk")
-    _count("cam_search_topk")
+            qn, n, d, levels, k, splits, rows_per_split, bq,
+            stream(dev))
+    raise_on(err, "cam_search_topk")
+    launches.add("cam_search_topk")
     if count_le is None:
         return idx, dist
     return idx, dist, count

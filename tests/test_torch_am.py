@@ -107,12 +107,12 @@ def test_table_validation_errors():
 
 
 def test_backend_registry_and_alias():
-    assert am.backend_names() == ("ref", "cuda")
+    assert am.backend_names() == ("ref", "cuda", "analog", "analog_cal")
     assert am.backend_capabilities("ref") == ("dense", "masked")
     assert am.backend_capabilities("cuda") == ("dense", "fused", "masked")
     assert am.backend_capabilities("pallas") == am.backend_capabilities("cuda")
     with pytest.raises(ValueError, match="unknown backend"):
-        am.get_backend("analog")
+        am.get_backend("analog_mc")
     # the port never registers into the reference's registry
     assert "cuda" not in jam.backend_names()
 

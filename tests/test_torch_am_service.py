@@ -287,5 +287,5 @@ def test_capacity_bound_and_reject_policy():
     with pytest.raises(TableFullError):
         svc.append("r", np.ones((1, 4), np.int32))
     with pytest.raises(ValueError, match="unknown backend"):
-        svc.create_table("x", width=4, backend="analog")
+        svc.create_table("x", width=4, backend="analog_mc")
     assert svc.stats("r")["rows"] == 3

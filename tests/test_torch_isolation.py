@@ -4,7 +4,9 @@
 * with no GPU, the entry points that default to the GPU raise instead of
   running on the CPU;
 * a CPU tensor never reaches the CUDA kernel loader: the CPU path of every
-  entry point runs the plain versions.
+  entry point runs the plain versions;
+* a CUDA tensor never reaches a plain version: with no card to launch on,
+  the kernel path raises.
 """
 
 import os
@@ -15,9 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import am
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.core import am, hdc
 from repro_torch.kernels import _build
 from repro_torch.kernels.cam_search import kernel, ops
+from repro_torch.kernels.hdc_encode import kernel as enc_kernel
+from repro_torch.kernels.hdc_encode import ops as enc_ops
+from repro_torch.kernels.hdc_encode import ref as enc_ref
+from repro_torch.kernels.mibo_mc import kernel as mc_kernel
+from repro_torch.kernels.mibo_mc import ops as mc_ops
+from repro_torch.kernels.mibo_mc import ref as mc_ref
 from repro_torch.serve import AMService
 
 torch.set_num_threads(2)
@@ -31,6 +41,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import sys\n"
         "import repro_torch, repro_torch.core.am, repro_torch.serve\n"
         "import repro_torch.convert, repro_torch.kernels.cam_search\n"
+        "import repro_torch.core.hdc, repro_torch.core.fefet\n"
+        "import repro_torch.core.mibo, repro_torch.core.cam_array\n"
+        "import repro_torch.core.energy, repro_torch.core.baselines\n"
+        "import repro_torch.data.hdc_data, repro_torch.kernels.hdc_encode\n"
+        "import repro_torch.kernels.mibo_mc\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -51,6 +66,13 @@ def test_no_gpu_means_an_error_not_the_cpu(monkeypatch):
         am.make_table(codes)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         am.serving_meta(4, 0.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hdc.make_model(hdc.HDCConfig(n_features=3, n_classes=2, dim=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        enc_ops.encode_quantize(np.zeros((2, 3)), np.zeros((3, 8)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mc_ops.monte_carlo_ml_currents(np.zeros(4, np.int32),
+                                       np.zeros(4, np.int32))
     # asking for the CPU explicitly works
     assert am.make_table(codes, device="cpu").device.type == "cpu"
 
@@ -77,7 +99,13 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
                      ternary=True)
     svc.append("t", codes)
     assert svc.lookup("t", codes[5], k=2).best_row == 5
+    enc_ops.encode_quantize(torch.ones((3, 5)), torch.ones((5, 7)), 2)
+    mc_ops.monte_carlo_ml_currents(torch.zeros(6, dtype=torch.int32),
+                                   torch.ones(6, dtype=torch.int32),
+                                   n_samples=10)
     assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0}
+    assert enc_kernel.launches == {"hdc_encode": 0}
+    assert mc_kernel.launches == {"mibo_mc": 0}
     # and a CPU tensor handed to a kernel wrapper is refused, not loaded
     with pytest.raises(ValueError, match="CUDA"):
         kernel.cam_search(q.to(torch.int8), t.to(torch.int8), levels=8)
@@ -88,3 +116,37 @@ def test_mixed_devices_are_refused():
     t = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="queries on"):
         ops.mismatch_counts(q, t)
+
+
+class _FellBack(Exception):
+    pass
+
+
+def test_cuda_tensors_never_fall_back_to_plain(monkeypatch):
+    """A CUDA tensor (a fake one: there is no card here) reaching
+    ``hdc_encode.ops`` or ``mibo_mc.ops`` goes to the kernel, which cannot
+    launch, and the call raises; the plain version is never run."""
+    def fell_back(*args, **kwargs):
+        raise _FellBack("plain version run for a CUDA tensor")
+
+    def no_card(name):
+        raise RuntimeError(f"no card to build {name!r} for")
+
+    monkeypatch.setattr(enc_ref, "encode_quantize", fell_back)
+    monkeypatch.setattr(mc_ref, "ml_currents", fell_back)
+    monkeypatch.setattr(_build, "load", no_card)
+    enc_kernel.reset_launches()
+    mc_kernel.reset_launches()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.empty((3, 5), device="cuda")
+        proj = torch.empty((5, 7), device="cuda")
+        noise = torch.zeros((10, 6), device="cuda")
+        code = torch.zeros(6, dtype=torch.int32, device="cuda")
+        for call in (lambda: enc_ops.encode_quantize(x, proj, 2),
+                     lambda: mc_ops.ml_currents_with_noise(code, code, noise,
+                                                           noise)):
+            with pytest.raises(Exception) as err:
+                call()
+            assert not isinstance(err.value, _FellBack), err.value
+    assert enc_kernel.launches == {"hdc_encode": 0}
+    assert mc_kernel.launches == {"mibo_mc": 0}
