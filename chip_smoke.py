@@ -30,12 +30,26 @@ exits non-zero without the final ``ok`` line:
    ``hdc_encode`` runs ``encode_quantize`` on each Table III stand-in's
    training features; ``fig9_mc`` runs the Fig. 9 Monte-Carlo study at
    bits 1-3 and checks the 3-bit margin;
+4b. the dense LM, yi-6b at full width and depth with random weights drawn
+   on the card: ``lm_prefill`` runs the forward at B = 1, S = 4,096 with
+   ``attn_impl="flash"`` (32 flash launches) and holds its logits against
+   the einsum forward on the same weights (finite, argmax equal at 99 % of
+   positions or more, relative L2 difference at most 2.5e-2 with each
+   position's input-token column zeroed); ``lm_serve`` runs the serving driver
+   (``repro_torch.launch.serve.main(["--arch", "yi-6b", "--full"])``: 3
+   slots, 6 requests, 8 new tokens, AM cache of 8 rows), which must answer
+   all 6 and serve repeats from the cache, and holds the engine's greedy
+   token for two prompts against the forward's argmax;
 5. each kernel held against its plain version and timed with CUDA events
    at the shapes its paths gave it, beside its bound, its plain version
    and a library call where one computes the same thing.
 
-Every path of phases 3 and 4 runs with the launch counts of every kernel
-set to 0 just before it and read just after, and must launch its kernels.
+Phase 2 also holds ``flash_attention`` against its plain version at the
+shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
+3e-2 and each row at a relative L2 error of 2e-2), at dh = 8 and at the
+prefill shape.  Every path of phases 3 and 4
+runs with the launch counts of every kernel set to 0 just before it and
+read just after, and must launch its kernels.
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``; the build goes to ``build/repro_torch/``.
 """
@@ -60,6 +74,7 @@ SEED = 20231007
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12       # tensor cores, dense
 
 WIDTH, BITS = 256, 3
 CAPACITY, ROWS, CHUNK = 1 << 20, 1_000_000, 65_536
@@ -78,6 +93,27 @@ MC_BIG = (1 << 20, 64)
 # (overdrive), 13 each; then the two currents' sum, the compare and the
 # masked add
 MIBO_OPS_PER_CELL = 2 * 13 + 3
+# the LM: yi-6b, prefill at the length of SHAPES["train_4k"]; the flash
+# kernel's shape there (B, S, H, HK, dh)
+LM_ARCH, LM_SEQ = "yi-6b", 4096
+FLASH_PATH_SHAPE = (1, LM_SEQ, 32, 4, 128)
+LM_ARGMAX_AGREEMENT = 0.99
+# bf16 flash outputs are also held row by row: the L2 norm of a row's
+# difference from plain over the plain row's norm.  A row attending to n
+# keys has |o| near sqrt(e / n), about 0.03 at n = 4,096, so the
+# elementwise 3e-2 of the reference test is as large as a late row's
+# values, while this limit scales with them.  Two bf16 ulps at the top of
+# a binade (2 x 2^-7), rounded up: a dh = 8 row, where one value can carry
+# the norm, reads up to 9.3e-3 on a sound kernel; a kernel that skips one
+# 64-key tile for late rows reads at least 3.4e-2 there (PERF.md, PR 13).
+FLASH_BF16_ROW_REL = 2e-2
+# The flash forward's logits against the einsum forward's, as a relative
+# L2 difference with the input token's own column zeroed in both (with
+# tied embeddings drawn at std 1 that column dominates every row, and with
+# it the argmax).  The sound flash path reads 1.99e-2 (rounding of the
+# bf16 residual stream through 32 layers), the skipped-tile kernel above
+# 2.96e-2 (PERF.md, PR 13).
+LM_LOGIT_REL_L2 = 2.5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -122,9 +158,10 @@ def phase_build():
 
 def _kernel_modules():
     from repro_torch.kernels.cam_search import kernel as cam
+    from repro_torch.kernels.flash_attention import kernel as fl
     from repro_torch.kernels.hdc_encode import kernel as enc
     from repro_torch.kernels.mibo_mc import kernel as mc
-    return cam, enc, mc
+    return cam, enc, mc, fl
 
 
 def reset_launches():
@@ -216,6 +253,7 @@ def phase_kernels():
               f"k={k} bitwise equal (query tiles {_tiles(qn)})")
     err["hdc_encode"] = _check_hdc_encode(rng, dev)
     err["mibo_mc"] = _check_mibo_mc(rng, dev)
+    err["flash_attention"] = _check_flash_attention(dev)
     return err
 
 
@@ -313,6 +351,91 @@ def _check_mibo_mc(rng, dev):
         top = max(top, err)
         print(f"  mibo_mc: S={s} C={c} within rtol 1e-5 of plain "
               f"(max abs diff {err:.3e} A)")
+    return top
+
+
+def _flash_inputs(shape, dtype, seed, dev):
+    """(B, S, H, dh) q and (B, T, HK, dh) k, v, standard normal."""
+    import torch
+    b, s, t, h, hk, dh = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((b, n, heads, dh), generator=gen,
+                             device=dev).to(dtype)
+                 for n, heads in ((s, h), (t, hk), (t, hk)))
+
+
+def _flash_close(got, want, tol, where):
+    """(largest absolute difference, largest per-row relative L2 error),
+    checked at rtol = atol = ``tol`` and, for bf16, each row at
+    ``FLASH_BF16_ROW_REL``.  Rows are the last axis."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bad = diff > tol + tol * w.abs()
+    check(not bool(bad.any()), f"flash_attention {where}: {int(bad.sum())} "
+          f"values outside {tol} of plain (max abs diff "
+          f"{diff.max().item():.3e})")
+    rows = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    worst = float(rows.max())
+    if got.dtype == torch.bfloat16:
+        n_bad = int((rows > FLASH_BF16_ROW_REL).sum())
+        check(n_bad == 0, f"flash_attention {where}: {n_bad} rows with a "
+              f"relative L2 error above {FLASH_BF16_ROW_REL} (max {worst:.3e})")
+    return float(diff.max()), worst
+
+
+def _flash_plain_bshd(q, k, v, causal):
+    """The plain version on (B, S, H, dh) q and (B, T, HK, dh) k, v."""
+    from repro_torch.kernels.flash_attention import ref
+    b, s, h, d = q.shape
+
+    def heads_first(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], d)
+
+    want = ref.attention(heads_first(q), heads_first(k), heads_first(v),
+                         group=h // k.shape[2], causal=causal)
+    return want.reshape(b, h, s, d).transpose(1, 2)
+
+
+def _flash_cases():
+    """(shape (B, S, T, H, HK, dh), dtype, causal) of phase 2: the reference
+    test's shapes (causal where S == T) in float32, its bf16 case, dh = 8
+    in both dtypes, and the LM's prefill shape in bf16 (last)."""
+    import torch
+    b, s, h, hk, dh = FLASH_PATH_SHAPE
+    cases = [((1, 128, 128, 2, 1, 64), torch.float32, c) for c in (1, 0)]
+    cases += [((2, 256, 256, 4, 2, 64), torch.float32, c) for c in (1, 0)]
+    cases += [((1, 128, 256, 4, 4, 128), torch.float32, 0),
+              ((2, 384, 128, 6, 2, 32), torch.float32, 0),
+              ((1, 128, 128, 2, 1, 64), torch.bfloat16, 1),
+              ((2, 128, 128, 8, 2, 8), torch.float32, 1),
+              ((2, 128, 128, 8, 2, 8), torch.bfloat16, 1),
+              ((b, s, s, h, hk, dh), torch.bfloat16, 1)]
+    return cases
+
+
+def _check_flash_attention(dev):
+    """flash_attention through its ops wrapper against the plain version at
+    each of :func:`_flash_cases`, case i on inputs drawn from SEED + i."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    top = 0.0
+    for i, (shape, dtype, causal) in enumerate(_flash_cases()):
+        q, k, v = _flash_inputs(shape, dtype, SEED + i, dev)
+        got = ops.flash_attention_bshd(q, k, v, causal=bool(causal))
+        want = _flash_plain_bshd(q, k, v, bool(causal))
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        err, row = _flash_close(got, want, tol,
+                                f"{shape} {dtype} causal={causal}")
+        top = max(top, err)
+        rows = (f", rows within {FLASH_BF16_ROW_REL}"
+                if dtype == torch.bfloat16 else "")
+        print(f"  flash_attention: (B, S, T, H, HK, dh)={shape} "
+              f"{str(dtype)[6:]} causal={causal}: within {tol} of plain"
+              f"{rows} (max abs diff {err:.3e}, max row relative L2 "
+              f"{row:.3e})")
+        del q, k, v, got, want
     return top
 
 
@@ -709,7 +832,173 @@ def phase_app():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing
+# phase 4b: the dense LM at full width
+# ---------------------------------------------------------------------------
+
+def _lm_setup():
+    """(cfg, its flash variant, weights drawn on the card from SEED, init
+    seconds, the (1, LM_SEQ) token batch) of the LM paths."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(LM_ARCH)
+    flash = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, attn_impl="flash"))
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, (1, LM_SEQ))).cuda()
+    return cfg, flash, params, init_s, tokens
+
+
+def _lm_prefill():
+    """yi-6b's forward at B = 1, S = 4,096 on the flash kernel, held against
+    the einsum forward on the same weights."""
+    import torch
+    from repro_torch.models import transformer
+    cfg, flash, params, init_s, tokens = _lm_setup()
+    n_params = sum(p.numel() for p in params.parameters())
+    (logits, aux), path = _run_path(
+        "lm_prefill", lambda: transformer.forward(params, flash, tokens),
+        {"flash_attention": cfg.n_layers})
+    check(logits.shape == (1, LM_SEQ, cfg.vocab_padded),
+          f"lm_prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "lm_prefill: non-finite logits")
+    t0 = time.perf_counter()
+    want, _ = transformer.forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    einsum_s = time.perf_counter() - t0
+    gate = _lm_readings(logits, want, tokens)
+    _lm_gate(gate)
+    print(f"  lm_prefill: {cfg.name} {n_params / 1e9:.3f} B params "
+          f"(init {init_s:.2f} s), logits (1, {LM_SEQ}, {cfg.vocab_padded}) "
+          f"finite; against einsum: argmax agreement "
+          f"{gate['argmax_agreement']:.4f} (argmax = input token at "
+          f"{gate['argmax_is_input_token']:.4f}), relative L2 without the "
+          f"input token's column {gate['logit_rel_l2']:.3e} (limit "
+          f"{LM_LOGIT_REL_L2}), max |logit diff| "
+          f"{gate['max_abs_logit_diff']:.4f} (largest |logit| "
+          f"{gate['max_abs_logit']:.2f}); einsum forward {einsum_s:.3f} s")
+    path.update({"arch": cfg.name, "params": n_params, "seq": LM_SEQ,
+                 "init_s": init_s, **gate, "einsum_forward_s": einsum_s})
+    return path
+
+
+def _lm_readings(got, want, tokens):
+    """The flash forward's logits against the einsum forward's on the same
+    weights: argmax agreement, the share of positions whose argmax is the
+    input token, the largest difference, and the relative L2 difference
+    with each position's input-token column zeroed in both."""
+    g, w = got.float(), want.float()
+    out = {"argmax_agreement": float(
+               (g.argmax(-1) == w.argmax(-1)).double().mean()),
+           "argmax_is_input_token": float(
+               (w.argmax(-1) == tokens).double().mean()),
+           "max_abs_logit_diff": float((g - w).abs().max()),
+           "max_abs_logit": float(w.abs().max())}
+    g.scatter_(-1, tokens[..., None], 0.0)
+    w.scatter_(-1, tokens[..., None], 0.0)
+    out["logit_rel_l2"] = float((g - w).norm() / w.norm())
+    return out
+
+
+def _lm_gate(r):
+    """Argmax agreement at ``LM_ARGMAX_AGREEMENT`` or more and the relative
+    L2 difference at ``LM_LOGIT_REL_L2`` or less."""
+    check(r["argmax_agreement"] >= LM_ARGMAX_AGREEMENT, f"lm_prefill: argmax "
+          f"agrees with the einsum forward at {r['argmax_agreement']:.4f} of "
+          f"positions")
+    check(r["logit_rel_l2"] <= LM_LOGIT_REL_L2, f"lm_prefill: logits differ "
+          f"from the einsum forward's by a relative L2 of "
+          f"{r['logit_rel_l2']:.3e} without the input token's column")
+
+
+def _engine_against_forward(out, n=2):
+    """For the first ``n`` distinct prompts of the served workload: a fresh
+    one-slot engine's greedy next token against the forward's argmax at the
+    last position.  The logits are held at the reference's decode-vs-forward
+    tolerance (atol 0.55, rtol 0.05); the tokens must be equal unless the
+    forward's top-2 margin is within twice the largest logit difference,
+    where bf16 rounding may flip a near-tie."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Engine
+    eng0 = out["engine"]
+    cfg, params = eng0.cfg, eng0.params
+    prompts = []
+    for p in out["workload"]:
+        if not any(np.array_equal(p, q) for q in prompts):
+            prompts.append(p)
+    checks = []
+    for p in prompts[:n]:
+        eng = Engine.create(cfg, params, batch=1, max_len=32)
+        t0 = time.perf_counter()
+        got = eng.prefill(p[None])[0]            # ends in a copy to the host
+        step_ms = (time.perf_counter() - t0) * 1e3 / len(p)
+        want, _ = transformer.forward(params, cfg, torch.from_numpy(p[None])
+                                      .cuda())
+        want = want[0, -1, :cfg.vocab_size].float().cpu()
+        diff = (got - want).abs()
+        check(bool((diff <= 0.55 + 0.05 * want.abs()).all()),
+              f"lm_serve: engine logits differ from forward by up to "
+              f"{float(diff.max()):.3f}")
+        top2 = want.topk(2).values
+        margin, delta = float(top2[0] - top2[1]), float(diff.max())
+        same = int(got.argmax()) == int(want.argmax())
+        check(same or margin <= 2 * delta, f"lm_serve: greedy token "
+              f"{int(got.argmax())} != forward argmax {int(want.argmax())} "
+              f"at top-2 margin {margin:.3f} > 2 x {delta:.3f}")
+        checks.append({"prompt_len": len(p), "engine_token": int(got.argmax()),
+                       "forward_token": int(want.argmax()), "equal": same,
+                       "top2_margin": margin, "max_abs_logit_diff": delta,
+                       "engine_ms_per_step": step_ms})
+    return checks
+
+
+def _lm_serve():
+    """The serving driver at full width, launch counts read around it."""
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    reset_launches()
+    t0 = time.perf_counter()
+    out = launch_serve.main(["--arch", LM_ARCH, "--full"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    cache = out["cache"]
+    groups = sum(cache["buckets"].values())
+    want = {name: groups if name == "cam_search_topk" else 0
+            for name in launches}
+    check(launches == want, f"lm_serve: launches {launches}, expected "
+          f"{want} for {groups} lookup groups")
+    check(sorted(out["results"]) == list(range(6)),
+          f"lm_serve answered {sorted(out['results'])}")
+    check(cache["hits"] > 0, "lm_serve: no repeat was served from the cache")
+    checks = _engine_against_forward(out)
+    print(f"  lm_serve: launches {launches}, {seconds:.3f} s; 6/6 answered, "
+          f"{len(out['generated'])} generated in {out['ticks']} ticks, cache "
+          f"{cache['hits']}/{cache['lookups']} hits; engine vs forward "
+          f"{json.dumps(checks)}")
+    return {"launches": launches, "seconds": seconds, "groups": groups,
+            "answered": len(out["results"]), "generated": len(out["generated"]),
+            "ticks": out["ticks"], "hits": cache["hits"],
+            "lookups": cache["lookups"], "engine_vs_forward": checks}
+
+
+def phase_lm():
+    import torch
+    paths = {"lm_prefill": _lm_prefill()}
+    torch.cuda.empty_cache()
+    paths["lm_serve"] = _lm_serve()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timing
 # ---------------------------------------------------------------------------
 
 def _time_ms(fn, reps, warmup=2):
@@ -975,6 +1264,52 @@ def phase_timing_app(paths, encode_shapes, err):
     return rows
 
 
+def _time_flash(launches, err):
+    """flash_attention at the prefill shape, which ``lm_prefill`` launched
+    it at ``launches`` times: held against plain, timed beside the plain
+    version and SDPA (``is_causal``, ``enable_gqa``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+    b, s, h, hk, dh = FLASH_PATH_SHAPE
+    q, k, v = (x.transpose(1, 2).reshape(-1, s, dh).contiguous()
+               for x in _flash_inputs((b, s, s, h, hk, dh), torch.bfloat16,
+                                      SEED + 99, "cuda"))
+    plain_ms, want = _timed_once(lambda: ref.attention(q, k, v,
+                                                       group=h // hk))
+    diff, _ = _flash_close(kernel.flash_attention(q, k, v, group=h // hk),
+                           want, 3e-2, "timed prefill shape")
+    err["flash_attention"] = max(err["flash_attention"], diff)
+    del want
+    ms = _time_ms(lambda: kernel.flash_attention(q, k, v, group=h // hk), 10)
+    plain_ms = min(plain_ms, _time_ms(
+        lambda: ref.attention(q, k, v, group=h // hk), 3, 1))
+    q4, k4, v4 = (x.view(b, -1, s, dh) for x in (q, k, v))
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 10)
+    t_b = 2 * (2 * b * h * s * dh + 2 * b * hk * s * dh) / HBM_BYTES_PER_S
+    t_o = 2 * b * h * s * s * dh / BF16_OPS_PER_S
+    return {"B": b, "S": s, "H": h, "HK": hk, "dh": dh, "dtype": "bfloat16",
+            "causal": True, "groups": launches, "ms": ms,
+            "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bytes_ms": t_b * 1e3, "ops_ms": t_o * 1e3}
+
+
+def phase_timing_lm(paths, err):
+    shape = _time_flash(paths["lm_prefill"]["launches"]["flash_attention"],
+                        err)
+    row = _row("flash_attention",
+               "src/repro/kernels/flash_attention/kernel.py:76",
+               "lm_prefill", paths, [shape], err,
+               source="src/repro_torch/csrc/flash_attention.cu")
+    print(f"  flash_attention: B=1 S={shape['S']} H={shape['H']} "
+          f"HK={shape['HK']} dh={shape['dh']} bf16 causal "
+          f"launches={row['launches']} ms={shape['ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+          f"plain_ms={shape['plain_ms']:.4f} sdpa_ms={shape['library_ms']:.4f}")
+    return [row]
+
+
 def main() -> int:
     try:
         import torch
@@ -993,10 +1328,13 @@ def main() -> int:
         run = phase_service()
         print("phase 4: the HDC application and the device model")
         app_paths, encode_shapes = phase_app()
-        paths = {**run["paths"], **app_paths}
+        print("phase 4b: the dense LM at full width")
+        lm_paths = phase_lm()
+        paths = {**run["paths"], **app_paths, **lm_paths}
         print("phase 5: timing")
         rows, costs = phase_timing({**run, "paths": paths}, err)
         rows += phase_timing_app(paths, encode_shapes, err)
+        rows += phase_timing_lm(paths, err)
         service = {**run["service"], **costs}
         print(card)
         print(json.dumps({"kernels": rows, "service": service,

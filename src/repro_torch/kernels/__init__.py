@@ -6,6 +6,8 @@
   encode and Z-score quantize.
 * :mod:`repro_torch.kernels.mibo_mc` — Monte-Carlo MIBO matchline currents
   under V_TH variation.
+* :mod:`repro_torch.kernels.flash_attention` — causal GQA attention with an
+  online softmax, the LM's prefill and scoring forward.
 
 Kernels are built from ``csrc/`` with ``nvcc`` at first launch
 (:mod:`repro_torch.kernels._build`), never at import.

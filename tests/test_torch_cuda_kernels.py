@@ -8,22 +8,33 @@ pins JAX, which a GPU machine for the port need not have).
 Tolerances: the CAM-search kernels bitwise (indices, distances, counts);
 ``hdc_encode`` the reference's (under 0.5 % of codes differ from the plain
 version, none by more than one level: float32 summation order); ``mibo_mc``
-rtol 1e-5, atol 1e-12 (``tests/test_kernels.py``).
+rtol 1e-5, atol 1e-12 (``tests/test_kernels.py``); ``flash_attention``
+2e-5 in float32 and 3e-2 in bfloat16 (``tests/test_flash_attention.py``),
+in bfloat16 also each row at a relative L2 error of 2e-2.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core import am, mibo
 from repro_torch.core import quantize as q
 from repro_torch.kernels.cam_search import kernel, ops, ref
+from repro_torch.kernels.flash_attention import kernel as fl_kernel
+from repro_torch.kernels.flash_attention import ops as fl_ops
+from repro_torch.kernels.flash_attention import ref as fl_ref
 from repro_torch.kernels.hdc_encode import kernel as enc_kernel
 from repro_torch.kernels.hdc_encode import ops as enc_ops
 from repro_torch.kernels.hdc_encode import ref as enc_ref
 from repro_torch.kernels.mibo_mc import kernel as mc_kernel
 from repro_torch.kernels.mibo_mc import ops as mc_ops
 from repro_torch.kernels.mibo_mc import ref as mc_ref
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +128,59 @@ def test_mibo_mc_against_plain(dev, s, c):
     want = mc_ref.ml_currents(v1[None] + n1, v2[None] + n2, g1[None],
                               g2[None])[:, 0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hk,dh,causal", [
+    (1, 128, 128, 2, 1, 64, True), (2, 256, 256, 4, 2, 64, True),
+    (1, 128, 256, 4, 4, 128, False), (2, 384, 128, 6, 2, 32, False),
+    (2, 128, 128, 8, 2, 8, True), (1, 7, 7, 8, 2, 8, True),
+    (1, 256, 256, 2, 1, 256, True), (1, 100, 100, 4, 2, 40, True),
+])
+def test_flash_attention_against_plain(dev, dtype, b, s, t, h, hk, dh,
+                                       causal):
+    gen = torch.Generator(device=dev).manual_seed(s + t + dh)
+    q, k, v = (torch.randn((b, n, heads, dh), generator=gen,
+                           device=dev).to(dtype)
+               for n, heads in ((s, h), (t, hk), (t, hk)))
+    fl_kernel.reset_launches()
+    got = fl_ops.flash_attention_bshd(q, k, v, causal=causal)
+    assert fl_kernel.launches["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+
+    def heads_first(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], dh)
+
+    want = fl_ref.attention(heads_first(q), heads_first(k), heads_first(v),
+                            group=h // hk, causal=causal)
+    want = want.reshape(b, h, s, dh).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:     # and each row, as chip_smoke.py does
+        g, w = got.float(), want.float()
+        rows = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+        assert float(rows.max()) <= 2e-2
+
+
+def test_lm_flash_forward_on_the_card(dev):
+    cfg = get_config("yi_6b", smoke=True)
+    flash = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, attn_impl="flash"))
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=dev)
+    fl_kernel.reset_launches()
+    got, _ = transformer.forward(model, flash, tokens)
+    assert fl_kernel.launches["flash_attention"] == cfg.n_layers
+    want, _ = transformer.forward(model, cfg, tokens)
+    torch.testing.assert_close(got.float(), want.float(), atol=0.25,
+                               rtol=0.05)
+    assert torch.equal(got.float().argmax(-1), want.float().argmax(-1))
+
+
+def test_serving_driver_on_the_card(dev):
+    kernel.reset_launches()
+    out = launch_serve.main([])
+    assert sorted(out["results"]) == list(range(6))
+    assert out["cache"]["hits"] > 0
+    assert kernel.launches["cam_search_topk"] >= 1
