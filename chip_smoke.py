@@ -13,7 +13,10 @@ exits non-zero without the final ``ok`` line:
 2. each kernel against its plain PyTorch version on the card: the two
    CAM-search kernels bitwise, over hamming (bits 1 and 3),
    thermometer-expanded L1, care planes, threshold counts, ``valid_rows``
-   below k, k in {1, 10, 256} and ragged N and D; ``hdc_encode`` at the
+   below k, k in {1, 10, 256} and ragged N and D, and with symbols outside
+   ``[0, levels)`` in queries and table at levels 2, 8 and 128 against the
+   plain one-hot rule, their pack kernel bitwise against its plain
+   version there; ``hdc_encode`` at the
    reference test's shapes and bits 1-3 (under 0.5 % of codes differ, none
    by more than one level; codes unchanged when the rows are scaled by 3.7
    at the property test's sizes); ``mibo_mc`` at three (S, C) shapes with
@@ -46,8 +49,9 @@ exits non-zero without the final ``ok`` line:
 
 Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
-3e-2 and each row at a relative L2 error of 2e-2), at dh = 8 and at the
-prefill shape.  Every path of phases 3 and 4
+3e-2 and each row at a relative L2 error of 2e-2), at dh = 8, at the
+prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
+head width.  Every path of phases 3 and 4
 runs with the launch counts of every kernel set to 0 just before it and
 read just after, and must launch its kernels.
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
@@ -206,7 +210,7 @@ def phase_kernels():
     from repro_torch.kernels.cam_search import ops, ref
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    err = {"cam_search": 0.0, "cam_search_topk": 0.0}
+    err = {"cam_search": 0.0, "cam_search_topk": 0.0, "cam_pack": 0.0}
     for name, bits, qn, n, d, has_care, counted, vr, k, l1 in kernel_cases():
         m = 1 << bits
         codes = rng.integers(0, m, (n, d)).astype(np.int32)
@@ -251,10 +255,68 @@ def phase_kernels():
                       f"{part} differ from plain")
         print(f"  {name}: Q={qn} N={codes.shape[0]} D={codes.shape[1]} "
               f"k={k} bitwise equal (query tiles {_tiles(qn)})")
+    _check_out_of_range(rng, dev)
     err["hdc_encode"] = _check_hdc_encode(rng, dev)
     err["mibo_mc"] = _check_mibo_mc(rng, dev)
     err["flash_attention"] = _check_flash_attention(dev)
     return err
+
+
+def out_of_range_cases():
+    """(bits, Q, N, D, care?, k, valid_rows): symbols outside [0, 2**bits)
+    in queries and table; D = 16 and 48 leave the last 32-symbol group of
+    the planes half empty."""
+    return [(1, 9, 1000, 48, False, 10, 990),
+            (3, 70, 3000, 48, True, 256, 2500),
+            (3, 16, 777, 16, False, 1, None),
+            (7, 33, 2000, 64, True, 10, 1999)]
+
+
+def _check_out_of_range(rng, dev):
+    """The pack kernel bitwise against its plain version, and both search
+    kernels bitwise against the plain one-hot rule (``levels=``), on
+    symbols drawn from [-128, 128) for a third of each query and from a
+    few values past both ends of [0, levels) elsewhere."""
+    import torch
+    from repro_torch.kernels.cam_search import kernel, ops, ref
+    for bits, qn, n, d, has_care, k, vr in out_of_range_cases():
+        m = 1 << bits
+        t = rng.integers(-3, min(m, 125) + 3, (n, d))
+        t[1::5] = t[0]
+        q = rng.integers(-3, min(m, 125) + 3, (qn, d))
+        q[:, : d // 3] = rng.integers(-128, 128, (qn, d // 3))
+        q[0] = t[0]
+        q[1] = rng.integers(0, m, d)
+        t8 = torch.from_numpy(t).to(dev).to(torch.int8)
+        q8 = torch.from_numpy(q).to(dev).to(torch.int8)
+        care = (torch.from_numpy((rng.random((n, d)) > 0.25).astype(np.int8))
+                .to(dev) if has_care else None)
+        packed = kernel.pack(q8, t8, levels=m, care=care)
+        want = (ref.pack_planes(q8, m), ref.pack_planes(t8, m),
+                None if care is None else ref.pack_care(care, m))
+        for part, g, w in zip(("queries", "table", "care"), packed, want):
+            check(g is None and w is None or torch.equal(g, w),
+                  f"out-of-range bits={bits}: cam_pack {part} differ from "
+                  f"plain")
+        thr = torch.full((qn, 1), float(d // 2), device=dev)
+        want_d = ref.mismatch_counts(q8, t8, care, levels=m)
+        want_k = ref.topk(q8, t8, k, valid_rows=vr, care=care, count_le=thr,
+                          levels=m)
+        for tile in _tiles(qn):
+            with _query_tile(tile):
+                got_d = ops.mismatch_counts(q8, t8, bits, care=care)
+                got_k = ops.topk_fused(q8, t8, k, bits, valid_rows=vr,
+                                       care=care, count_le=thr)
+            torch.cuda.synchronize()
+            check(torch.equal(got_d, want_d), f"out-of-range bits={bits}/"
+                  f"{tile}: cam_search differs from the one-hot rule")
+            for part, g, w in zip(("rows", "distances", "counts"), got_k,
+                                  want_k):
+                check(torch.equal(g, w), f"out-of-range bits={bits}/{tile}: "
+                      f"cam_search_topk {part} differ from the one-hot rule")
+        print(f"  out-of-range levels={m}: Q={qn} N={n} D={d} k={k} "
+              f"care={has_care}: cam_pack, cam_search and cam_search_topk "
+              f"bitwise equal to plain (query tiles {_tiles(qn)})")
 
 
 def _encode_differs(got, want, where):
@@ -400,7 +462,9 @@ def _flash_plain_bshd(q, k, v, causal):
 def _flash_cases():
     """(shape (B, S, T, H, HK, dh), dtype, causal) of phase 2: the reference
     test's shapes (causal where S == T) in float32, its bf16 case, dh = 8
-    in both dtypes, and the LM's prefill shape in bf16 (last)."""
+    in both dtypes, the LM's prefill shape in bf16 (case 9, whose inputs
+    ``scripts/flash_fault_check.py`` reuses), then bf16 at each padded head
+    width of the tensor-core kernel, ragged and grouped by 8."""
     import torch
     b, s, h, hk, dh = FLASH_PATH_SHAPE
     cases = [((1, 128, 128, 2, 1, 64), torch.float32, c) for c in (1, 0)]
@@ -411,7 +475,20 @@ def _flash_cases():
               ((2, 128, 128, 8, 2, 8), torch.float32, 1),
               ((2, 128, 128, 8, 2, 8), torch.bfloat16, 1),
               ((b, s, s, h, hk, dh), torch.bfloat16, 1)]
+    cases += [((1, 100, 100, 8, 1, 16), torch.bfloat16, 1),
+              ((2, 384, 128, 6, 2, 32), torch.bfloat16, 0),
+              ((1, 100, 100, 4, 2, 40), torch.bfloat16, 1),
+              ((1, 1024, 1024, 16, 2, 128), torch.bfloat16, 1),
+              ((1, 256, 256, 2, 1, 256), torch.bfloat16, 1),
+              ((1, 7, 7, 8, 1, 100), torch.bfloat16, 1)]
     return cases
+
+
+def prefill_case():
+    """Index of the LM's prefill shape among :func:`_flash_cases`."""
+    b, s, h, hk, dh = FLASH_PATH_SHAPE
+    return next(i for i, (shape, _, _) in enumerate(_flash_cases())
+                if shape == (b, s, s, h, hk, dh))
 
 
 def _check_flash_attention(dev):
@@ -474,8 +551,8 @@ def _drive(svc, path, table, queries, **kw):
     The launch counts are set to 0 just before the first submit and read
     just after the last lookup resolved, so they are this path's alone; the
     groups it dispatched are read from the table's bucket counts.  Each
-    group is one search, which launches one kernel: the fused one, or the
-    dense one for k above 256.
+    group is one search, which launches the pack kernel and one search
+    kernel: the fused one, or the dense one for k above 256.
     """
     from repro_torch.core import am
     check(svc.drain(timeout=600), f"{path}: driver busy before the path")
@@ -492,7 +569,8 @@ def _drive(svc, path, table, queries, **kw):
     groups = sum(buckets.values())
     tier = ("cam_search" if kw.get("k", 1) > am.FUSED_K_MAX
             else "cam_search_topk")
-    want = {name: groups if name == tier else 0 for name in launches}
+    want = {name: groups if name in (tier, "cam_pack") else 0
+            for name in launches}
     check(launches == want, f"{path}: launches {launches}, expected {want} "
           f"for {groups} groups")
     print(f"  {path}: {len(queries)} lookups, {groups} groups "
@@ -779,7 +857,8 @@ def phase_app():
     data["ucihar_1500_500"] = _hdc_setup("ucihar", 1500, 500)
     n_cam = len(set(HDC_FIG11A + HDC_FIG11B)) + 2      # + the ucihar two
     (accs, cam_calls), paths["hdc_isolet"] = _run_path(
-        "hdc_isolet", lambda: _hdc_isolet(data), {"cam_search_topk": n_cam})
+        "hdc_isolet", lambda: _hdc_isolet(data),
+        {"cam_search_topk": n_cam, "cam_pack": n_cam})
     check(cam_calls == n_cam, f"hdc_isolet made {cam_calls} CUDA searches")
     print(f"  hdc_isolet accuracies: {json.dumps(accs)}")
     paths["hdc_isolet"]["accuracy"] = accs
@@ -970,7 +1049,7 @@ def _lm_serve():
     launches = read_launches()
     cache = out["cache"]
     groups = sum(cache["buckets"].values())
-    want = {name: groups if name == "cam_search_topk" else 0
+    want = {name: groups if name in ("cam_search_topk", "cam_pack") else 0
             for name in launches}
     check(launches == want, f"lm_serve: launches {launches}, expected "
           f"{want} for {groups} lookup groups")
@@ -1035,7 +1114,8 @@ def _bound_parts(bytes_moved, ops):
 
 
 def _time_dense(q8, t8, levels, groups, err):
-    """One shape of the dense kernel: held against plain, then timed, with
+    """One shape of the dense kernel: held against plain, then timed
+    through its wrapper (the pack launch included), with
     ``torch.cdist(p=0)`` on float copies as the library call."""
     import torch
     from repro_torch.kernels.cam_search import kernel, ref
@@ -1058,8 +1138,9 @@ def _time_dense(q8, t8, levels, groups, err):
 
 
 def _time_fused(q8, t8, vr, levels, k, groups, err):
-    """One shape of the fused kernel: held against plain, then timed.  Its
-    bound counts the live rows only, the ones the result depends on."""
+    """One shape of the fused kernel: held against plain, then timed
+    through its wrapper (the pack launch included).  Its bound counts the
+    live rows only, the ones the result depends on."""
     import torch
     from repro_torch.kernels.cam_search import kernel, ref
     (qn, d), n = q8.shape, t8.shape[0]
@@ -1074,6 +1155,28 @@ def _time_fused(q8, t8, vr, levels, k, groups, err):
     t_b, t_o = _bound_parts(qn * d + live * d + 4 + qn * k * 8,
                             qn * live * d)
     return {"Q": qn, "N": n, "D": d, "k": k, "groups": groups, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bytes_ms": t_b, "ops_ms": t_o}
+
+
+def _time_pack(q8, t8, levels, groups):
+    """One shape of the pack kernel: held against plain, then timed.  Its
+    bound is the bytes it must move: the int8 inputs read once, the plane
+    words written once."""
+    import torch
+    from repro_torch.kernels.cam_search import kernel, ref
+    (qn, d), n = q8.shape, t8.shape[0]
+    plain_ms, want = _timed_once(lambda: (ref.pack_planes(q8, levels),
+                                          ref.pack_planes(t8, levels)))
+    got = kernel.pack(q8, t8, levels=levels)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"cam_pack differs from plain at Q={qn} N={n} D={d}")
+    del got, want
+    ms = _time_ms(lambda: kernel.pack(q8, t8, levels=levels), 10)
+    _, words, gp = ref.plane_layout(d, levels)
+    t_b, t_o = _bound_parts((qn + n) * (d + gp * words * 4),
+                            (qn + n) * d)
+    return {"Q": qn, "N": n, "D": d, "groups": groups, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             "bytes_ms": t_b, "ops_ms": t_o}
 
@@ -1145,6 +1248,10 @@ def phase_timing(run, err):
             q8, t8, vr, levels=levels, k=K)))
         fused.append(shape)
 
+    # pack kernel, at each bucket size the main path dispatched
+    packs = [_time_pack(batch(qb), t8, levels, n)
+             for qb, n in buckets.items()]
+
     # dense kernel: the L1 k = 300 path's thermometer-expanded table (its
     # queries padded to the bucket as the service pads them), then the
     # responses table at Q = 64
@@ -1171,6 +1278,8 @@ def phase_timing(run, err):
              "l1_k300", paths, dense, err),
         _row("cam_search_topk", "src/repro/kernels/cam_search/kernel.py:402",
              "responses_k10", paths, fused, err),
+        _row("cam_pack", "src/repro/kernels/cam_search/kernel.py:59",
+             "responses_k10", paths, packs, err),
     ]
     for r in rows:
         for s in r["shapes"]:

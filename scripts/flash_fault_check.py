@@ -5,14 +5,17 @@ NVIDIA GPU.
     python3 scripts/flash_fault_check.py [--out chiprun_out/flash_faults.json]
 
 Builds ``src/repro_torch/csrc/flash_attention.cu`` as it is and two copies
-with a fault planted at build time (the copies are written under
+with a fault planted at build time in its bfloat16 (tensor-core) kernel,
+the one the gates run (the copies are written under
 ``build/repro_torch/faults/``; the sources of the repo are not touched):
 
 - ``skip_tile``: query tiles 32 and later (rows 2,048 and on at 64 rows a
-  tile) skip key tile 1 (keys 64-127), an error near 0.003 in a late row's
-  values of about 0.03;
+  tile) skip key tile 1 (keys 64-127: every key of it counts as masked),
+  an error near 0.003 in a late row's values of about 0.03;
 - ``kv_head``: query head ``bh`` reads KV head ``bh % (BH / group)``
   instead of ``bh / group``.
+
+Each fault's text anchors must occur exactly once in the source.
 
 Each build is swapped in as the library the wrapper loads, then run
 through the two gates of ``chip_smoke.py`` that hold the flash path:
@@ -42,12 +45,13 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 import chip_smoke as cs  # noqa: E402
 
-_K_TILE = "    const int k0 = kj * BK;\n"
 FAULTS = {
-    "skip_tile": [(_K_TILE, "    if (qi >= 32 && kj == 1) continue;\n"
-                   + _K_TILE)],
-    "kv_head": [("(long long)(bh / group) * Skv",
-                 "(long long)(bh % (BH / group)) * Skv")],
+    "skip_tile": [("const bool edge = ",
+                   "const bool skip = qi >= 32 && kt == 1;\n"
+                   "    const bool edge = skip || "),
+                  ("const bool keep = ", "const bool keep = !skip && ")],
+    "kv_head": [("const int kvh = bh / group;",
+                 "const int kvh = bh % (BH / group);")],
 }
 
 
@@ -61,7 +65,8 @@ def build_faults():
     for name, edits in FAULTS.items():
         text = src
         for old, new in edits:
-            cs.check(old in text, f"{name}: {old!r} not in the source")
+            cs.check(text.count(old) == 1,
+                     f"{name}: {old!r} is not in the source exactly once")
             text = text.replace(old, new)
         cu = out_dir / f"flash_attention_{name}.cu"
         cu.write_text(text)
@@ -149,10 +154,9 @@ def main(argv=None) -> int:
     libs = {"sound": _build.load("flash_attention"), **build_faults()}
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
-    cases = cs._flash_cases()
-    shape, dtype, _ = cases[-1]
-    q, k, v = cs._flash_inputs(shape, dtype, cs.SEED + len(cases) - 1,
-                               "cuda")
+    i = cs.prefill_case()
+    shape, dtype, _ = cs._flash_cases()[i]
+    q, k, v = cs._flash_inputs(shape, dtype, cs.SEED + i, "cuda")
     want = cs._flash_plain_bshd(q, k, v, True)
     report = {"card": card, "shape": shape, "kernel": {}, "lm": {}}
     for name, lib in libs.items():

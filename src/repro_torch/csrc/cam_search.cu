@@ -1,4 +1,5 @@
-// Multi-bit CAM search on Hopper: the dense and the fused top-k tier.
+// Multi-bit CAM search on Hopper: the dense and the fused top-k tier, on
+// bit-planes.
 //
 // Replaces the two Pallas TPU kernels of src/repro/kernels/cam_search/
 // kernel.py: `cam_search` (dense (Q, N) mismatch counts) and
@@ -9,29 +10,53 @@
 //   unmasked: mismatches(q, t) = D - #{d : q_d == t_d and 0 <= q_d < levels}
 //   masked:   mismatches(q, t) = #{d : care_d != 0 and 0 <= q_d < levels
 //                                     and q_d != t_d}
-// over int8 symbols.  Instead of one-hot products on a matrix unit, each
-// thread compares 4 symbols per 32-bit word with byte-wise bit tricks and
-// counts with __popc; counts accumulate in int32.
+// over int8 symbols: a query symbol outside [0, levels) matches nothing, a
+// table symbol outside it differs from every in-range query symbol.
 //
-// What bounds it on this card: at the serving shape (Q = 64 queries,
-// N = 2^20 rows, D = 256) the table is 256 MiB of int8, read once; that
-// read is the bound (about 80 us at 3.35 TB/s).  The symbol compares run on
-// the integer ALUs, about six instructions per 4 symbols, which makes this
-// simple version compute-bound well above that; tensor-core one-hot
-// products are the route to the bound and are left to a later change.
+// Bit-planes.  `cam_pack_kernel` turns each row of 32 symbols (a group)
+// into P value planes (bit b of every symbol, P = 1, 3 or 7, enough bits
+// for min(levels, 128) values) and one in-range plane (0 <= x < levels),
+// and a care plane into one word (care != 0) per group; groups past D are
+// zero, so their symbols count as out of range.  For in-range q and t,
+// q == t iff their low P bits are equal, so per group
+//   matches    = popc(qv & tv & ~X),   X = OR_b (q_b ^ t_b)
+//   mismatches = popc(care & qv & (X | ~tv))
+// and the unmasked count is D - matches.  At 3 bits that is four logic
+// instructions (merged into LOP3s), one popc and one add per 32 symbol
+// pairs, where the byte-wise compare of the first version of this kernel
+// took about 48 integer instructions and eight popc.
+//
+// What bounds it on this card: integer instruction issue, then the top-k
+// bookkeeping.  At the main path's shape (Q = 1,024 queries, N = 2^20
+// rows, D = 256, 3 bits) the compare is 2^30 row pairs x 8 groups x ~6
+// instructions, about 3.5 ms at the H100's ~1.5e13 INT32 operations/s,
+// against a table read of 256 MiB (0.08 ms at 3.35 TB/s) and Q * N * D int8
+// operations (0.14 ms at the int8 tensor-core rate).  One-hot products on
+// the tensor cores would widen the contraction by `levels` (8x at 3 bits);
+// the planes widen it by log2(levels).  The pack costs one pass over the
+// inputs per call (about 0.2 ms at 2^20 x 256), which spares every block
+// from converting again.  scripts/kernel_variants.py times ablations of
+// this kernel (PERF.md).
 //
 // Design.  A block owns BQ queries and walks table tiles of BN rows,
-// loading D in 64-byte chunks into shared memory.  The dense kernel writes
-// each tile's counts out.  The fused kernel cannot carry a running top-k
-// across blocks (blocks run in parallel and in no order), so it runs in two
-// passes: pass 1 splits N over blocks; each block keeps, per query, a
-// sorted list of the k smallest packed keys (distance << 32 | row) of its
-// own split in shared memory, plus a per-query threshold count; pass 2
-// merges the splits' lists into (Q, k) and sums the counts (no atomics, so
-// the result is deterministic).  Keys are unique per row, so the list
-// order is exactly ascending (distance, row): ties go to the lowest row,
-// and rows at index >= valid_rows carry distance 0xFFFFFFFF (+inf) with
-// their own row index.  Unfilled slots hold (+inf, 2^31 - 1).
+// loading CW packed words per row at a time into shared memory (rows
+// padded to 144 bytes so the 16-byte loads of eight rows hit eight bank
+// groups).  Thread (ty, tx) of a 16 x 16 grid holds BQ / 16 queries and 8
+// rows; queries are read once per block when a row fits one chunk.  The
+// dense kernel writes each tile's counts out.  The fused kernel cannot
+// carry a running top-k across blocks (blocks run in parallel and in no
+// order), so it runs in two passes: pass 1 splits N over blocks (the query
+// tiles of one split side by side, so that they share its rows in L2);
+// each block keeps, per query, a sorted list of the k smallest packed keys
+// (distance << 32 | row) of its own split in shared memory, plus a
+// per-query threshold count; pass 2 merges the splits' lists into (Q, k)
+// and sums the counts (no atomics, so the result is deterministic).  Per
+// tile and query, one vote skips the tile when no row beats the list's
+// largest key; lists of k <= 32 are updated in registers.  Keys are unique
+// per row, so the list order is exactly ascending (distance, row): ties go
+// to the lowest row, and rows at index >= valid_rows carry distance
+// 0xFFFFFFFF (+inf) with their own row index.  Unfilled slots hold
+// (+inf, 2^31 - 1).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,14 +64,29 @@
 namespace {
 
 constexpr int BN = 128;          // table rows per tile
-constexpr int DC = 64;           // D bytes per shared-memory chunk
-constexpr int DCW = DC / 4;      // 32-bit words per chunk row
-constexpr int LDW = DCW + 1;     // padded shared row stride, in words
+constexpr int CW = 32;           // packed words per row per shared chunk
+constexpr int LDW = CW + 4;      // padded shared row stride, in words
 constexpr int THREADS = 256;     // a 16 x 16 grid of threads
 constexpr int TN = BN / 16;      // table rows per thread
 constexpr int MAX_K = 256;       // largest k of the fused tier
 constexpr int MERGE_WARPS = 4;   // queries per block in the merge pass
+constexpr int PACK_THREADS = 256;
 constexpr uint64_t SENTINEL = 0xFFFFFFFF7FFFFFFFull;   // (+inf, 2^31 - 1)
+
+// The packed layout of one row: groups of 32 symbols, each W = P + 1
+// words (P value planes, then the in-range plane).  Bit 8j + i of a
+// group's words holds symbol 4i + j of the group.  Rows hold a multiple of
+// four words (groups rounded up to two at P = 1) so that they stay 16-byte
+// aligned; a chunk of CW words holds GC whole groups, and a step of the
+// compare loop SW words (whole 16-byte loads), GS groups.
+template <int P>
+struct Layout {
+  static constexpr int W = P + 1;
+  static constexpr int GC = CW / W;
+  static constexpr int LDC = GC + 1;    // shared stride of the care words
+  static constexpr int SW = W < 4 ? 4 : W;
+  static constexpr int GS = SW / W;
+};
 
 // 0x80 in every byte of x that is nonzero, 0 elsewhere.  No carry crosses
 // a byte: (x & 0x7F) + 0x7F <= 0xFE.
@@ -60,62 +100,166 @@ __device__ __forceinline__ uint32_t in_range80(uint32_t q, uint32_t lim_add) {
   return ~((((q & 0x7F7F7F7Fu) + lim_add) | q)) & 0x80808080u;
 }
 
-// Copy rows [r0, r0 + R) and bytes [d0, d0 + DC) of a row-major
-// (rows, D) int8 matrix into shared words dst[R][LDW]; cells outside the
-// matrix read as 0.  D is a multiple of 16 and the base is 16-byte aligned.
-__device__ __forceinline__ void load_chunk(uint32_t* dst, const int8_t* src,
-                                           int r0, int R, int rows, int D,
-                                           int d0) {
-  constexpr int VPR = DC / 16;
+__host__ __device__ inline uint32_t lim_add_of(int levels) {
+  const uint32_t lim = levels < 128 ? (uint32_t)levels : 128u;
+  return (128u - lim) * 0x01010101u;
+}
+
+// Thread i packs group i % GP of row i / GP of [queries; table]: the
+// queries' P + 1 words to qp, the table's to tp, and with a care plane
+// the group's care word to cp.  D is a multiple of 16 and the inputs are
+// 16-byte aligned.
+template <int P>
+__global__ void __launch_bounds__(PACK_THREADS)
+cam_pack_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
+                const int8_t* __restrict__ care, uint32_t* __restrict__ qp,
+                uint32_t* __restrict__ tp, uint32_t* __restrict__ cp, int Q,
+                int N, int D, int GP, uint32_t lim_add) {
+  constexpr int W = Layout<P>::W;
+  const long long i = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (i >= (long long)(Q + N) * GP) return;
+  int row = (int)(i / GP);
+  const int g = (int)(i - (long long)row * GP);
+  const bool tab = row >= Q;
+  if (tab) row -= Q;
+  const int8_t* src = (tab ? t : q) + (size_t)row * D + g * 32;
+  const bool with_care = tab && care != nullptr;
+  uint32_t planes[W], cw = 0u;
+#pragma unroll
+  for (int b = 0; b < W; ++b) planes[b] = 0u;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {            // two 16-byte halves of a group
+    if (g * 32 + 16 * h >= D) continue;
+    const uint4 x4 = *reinterpret_cast<const uint4*>(src + 16 * h);
+    uint4 c4 = make_uint4(0u, 0u, 0u, 0u);
+    if (with_care)
+      c4 = *reinterpret_cast<const uint4*>(care + (size_t)row * D + g * 32 +
+                                           16 * h);
+    const uint32_t xs[4] = {x4.x, x4.y, x4.z, x4.w};
+    const uint32_t cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int wi = 4 * h + s;            // word of the group: symbols 4wi..
+      const uint32_t x = xs[s];
+#pragma unroll
+      for (int b = 0; b < P; ++b)
+        planes[b] |= ((x >> b) & 0x01010101u) << wi;
+      planes[P] |= (in_range80(x, lim_add) >> 7) << wi;
+      if (with_care) cw |= (nonzero80(cs[s]) >> 7) << wi;
+    }
+  }
+  uint32_t* dst = (tab ? tp : qp) + ((size_t)row * GP + g) * W;
+  if constexpr (W == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(planes[0], planes[1]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < W / 4; ++u)
+      reinterpret_cast<uint4*>(dst)[u] =
+          make_uint4(planes[4 * u], planes[4 * u + 1], planes[4 * u + 2],
+                     planes[4 * u + 3]);
+  }
+  if (with_care) cp[(size_t)row * GP + g] = cw;
+}
+
+// Words [w0, w0 + CW) of rows [r0, r0 + R) of a packed (rows, RW) matrix
+// into shared dst[R][LDW]; words outside the matrix read as 0.
+__device__ __forceinline__ void load_words(uint32_t* dst, const uint32_t* src,
+                                           int r0, int R, int rows, int RW,
+                                           int w0) {
+  constexpr int VPR = CW / 4;
   for (int v = threadIdx.x; v < R * VPR; v += THREADS) {
     const int r = v / VPR, part = v % VPR;
-    const int row = r0 + r, col = d0 + part * 16;
+    const int row = r0 + r, w = w0 + 4 * part;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows && col < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)row * D + col);
-    uint32_t* p = dst + r * LDW + part * 4;
-    p[0] = val.x; p[1] = val.y; p[2] = val.z; p[3] = val.w;
+    if (row < rows && w < RW)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)row * RW + w);
+    *reinterpret_cast<uint4*>(dst + r * LDW + 4 * part) = val;
   }
 }
 
-// Mismatch counts of queries [q0, q0 + BQ) against rows [n0, n0 + BN).
-// Thread (ty, tx) owns queries q0 + ty * TQ + i and rows n0 + tx + 16 * j.
+// Care words of groups [g0, g0 + GC) of table rows [n0, n0 + BN).
+template <int P>
+__device__ __forceinline__ void load_care(uint32_t* dst, const uint32_t* cp,
+                                          int n0, int N, int GP, int g0) {
+  constexpr int GC = Layout<P>::GC, LDC = Layout<P>::LDC;
+  for (int v = threadIdx.x; v < BN * GC; v += THREADS) {
+    const int r = v / GC, gi = v % GC;
+    const int row = n0 + r, g = g0 + gi;
+    dst[r * LDC + gi] = (row < N && g < GP) ? cp[(size_t)row * GP + g] : 0u;
+  }
+}
+
+// One group of one (query, row) pair: the bits to count.  Unmasked, the
+// in-range matches; masked, the cared-for mismatches of in-range queries.
+template <int P, bool MASKED>
+__device__ __forceinline__ uint32_t group_bits(const uint32_t* qw,
+                                               const uint32_t* tw,
+                                               uint32_t care) {
+  uint32_t x = qw[0] ^ tw[0];
+#pragma unroll
+  for (int b = 1; b < P; ++b) x |= qw[b] ^ tw[b];
+  if (MASKED) return qw[P] & care & (x | ~tw[P]);
+  return qw[P] & tw[P] & ~x;
+}
+
+// Counts of queries [q0, q0 + BQ) against rows [n0, n0 + BN).  Thread
+// (ty, tx) owns queries q0 + ty * TQ + i and rows n0 + tx + 16 * j.
 // Unmasked it leaves #matches in acc (the caller finalises D - acc);
-// masked it leaves #mismatches.
-template <int BQ, bool MASKED>
+// masked it leaves #mismatches.  `load_q`: (re)load the query words; a
+// caller whose rows fit one chunk loads them for its first tile only.
+template <int P, int BQ, bool MASKED>
 __device__ __forceinline__ void tile_counts(
-    int (&acc)[BQ / 16][TN], const int8_t* __restrict__ q,
-    const int8_t* __restrict__ t, const int8_t* __restrict__ care, int q0,
-    int Q, int n0, int N, int D, uint32_t lim_add, uint32_t* qs,
-    uint32_t* ts, uint32_t* cs) {
-  constexpr int TQ = BQ / 16;
+    int (&acc)[BQ / 16][TN], const uint32_t* __restrict__ qp,
+    const uint32_t* __restrict__ tp, const uint32_t* __restrict__ cp, int q0,
+    int Q, int n0, int N, int GP, bool load_q, uint32_t* qs, uint32_t* ts,
+    uint32_t* cs) {
+  using L = Layout<P>;
+  constexpr int TQ = BQ / 16, W = L::W, SW = L::SW, GS = L::GS;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int RW = GP * W;
 #pragma unroll
   for (int i = 0; i < TQ; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-  for (int d0 = 0; d0 < D; d0 += DC) {
-    load_chunk(qs, q, q0, BQ, Q, D, d0);
-    load_chunk(ts, t, n0, BN, N, D, d0);
-    if (MASKED) load_chunk(cs, care, n0, BN, N, D, d0);
+  for (int w0 = 0; w0 < RW; w0 += CW) {
+    if (load_q) load_words(qs, qp, q0, BQ, Q, RW, w0);
+    load_words(ts, tp, n0, BN, N, RW, w0);
+    if (MASKED) load_care<P>(cs, cp, n0, N, GP, w0 / W);
     __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < DCW; ++w) {
-      uint32_t qw[TQ], qv[TQ];
+#pragma unroll 2
+    for (int s = 0; s < CW / SW; ++s) {
+      uint32_t qw[TQ][SW];
 #pragma unroll
-      for (int i = 0; i < TQ; ++i) {
-        qw[i] = qs[(ty * TQ + i) * LDW + w];
-        qv[i] = in_range80(qw[i], lim_add);
-      }
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int u = 0; u < SW / 4; ++u) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              qs + (ty * TQ + i) * LDW + s * SW + 4 * u);
+          qw[i][4 * u] = v.x; qw[i][4 * u + 1] = v.y;
+          qw[i][4 * u + 2] = v.z; qw[i][4 * u + 3] = v.w;
+        }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const uint32_t tw = ts[(tx + 16 * j) * LDW + w];
-        const uint32_t cw = MASKED ? nonzero80(cs[(tx + 16 * j) * LDW + w]) : 0u;
+        const int r = tx + 16 * j;
+        uint32_t tw[SW], cw[GS];
+#pragma unroll
+        for (int u = 0; u < SW / 4; ++u) {
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(ts + r * LDW + s * SW + 4 * u);
+          tw[4 * u] = v.x; tw[4 * u + 1] = v.y;
+          tw[4 * u + 2] = v.z; tw[4 * u + 3] = v.w;
+        }
+#pragma unroll
+        for (int gs = 0; gs < GS; ++gs)
+          cw[gs] = MASKED ? cs[r * L::LDC + s * GS + gs] : 0u;
 #pragma unroll
         for (int i = 0; i < TQ; ++i) {
-          const uint32_t ne = nonzero80(qw[i] ^ tw);
-          const uint32_t m = MASKED ? (ne & qv[i] & cw) : (~ne & qv[i]);
-          acc[i][j] += __popc(m);
+          int c = 0;
+#pragma unroll
+          for (int gs = 0; gs < GS; ++gs)
+            c += __popc(group_bits<P, MASKED>(&qw[i][gs * W], &tw[gs * W],
+                                              cw[gs]));
+          acc[i][j] += c;
         }
       }
     }
@@ -123,25 +267,20 @@ __device__ __forceinline__ void tile_counts(
   }
 }
 
-__device__ __forceinline__ uint32_t lim_add_of(int levels) {
-  const uint32_t lim = levels < 128 ? (uint32_t)levels : 128u;
-  return (128u - lim) * 0x01010101u;
-}
-
-template <int BQ, bool MASKED>
+template <int P, int BQ, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-cam_search_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
-                  const int8_t* __restrict__ care, int32_t* __restrict__ out,
-                  int Q, int N, int D, int levels) {
+cam_search_kernel(const uint32_t* __restrict__ qp,
+                  const uint32_t* __restrict__ tp,
+                  const uint32_t* __restrict__ cp, int32_t* __restrict__ out,
+                  int Q, int N, int D, int GP) {
   constexpr int TQ = BQ / 16;
-  __shared__ uint32_t qs[BQ * LDW];
-  __shared__ uint32_t ts[BN * LDW];
-  __shared__ uint32_t cs[MASKED ? BN * LDW : 1];
+  __shared__ __align__(16) uint32_t qs[BQ * LDW];
+  __shared__ __align__(16) uint32_t ts[BN * LDW];
+  __shared__ uint32_t cs[MASKED ? BN * Layout<P>::LDC : 1];
   const int n0 = blockIdx.x * BN, q0 = blockIdx.y * BQ;
   int acc[TQ][TN];
-  tile_counts<BQ, MASKED>(acc, q, t, care, q0, Q, n0, N, D,
-                          lim_add_of(levels), qs, ts, cs);
-  const int dtot = (D + DC - 1) / DC * DC;   // zero-filled cells all match
+  tile_counts<P, BQ, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP, true, qs, ts,
+                             cs);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < TQ; ++i) {
@@ -150,17 +289,34 @@ cam_search_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
     for (int j = 0; j < TN; ++j) {
       const int r = n0 + tx + 16 * j;
       if (qq < Q && r < N)
-        out[(size_t)qq * N + r] = MASKED ? acc[i][j] : dtot - acc[i][j];
+        out[(size_t)qq * N + r] = MASKED ? acc[i][j] : D - acc[i][j];
     }
   }
 }
 
 // Offer `key` (from every lane where `want` holds) to the sorted list
 // L[0, k) that one warp shares in shared memory; the list keeps the k
-// smallest keys.  Warp-uniform control flow throughout.
+// smallest keys.  Warp-uniform control flow throughout.  Up to k = 32 the
+// list is worked on in registers, one key a lane: a ballot finds where a
+// key goes and one shuffle moves the larger keys up.
 __device__ __forceinline__ void warp_insert(uint64_t* L, int k, uint64_t key,
                                             bool want, int lane) {
   unsigned ballot = __ballot_sync(0xFFFFFFFFu, want);
+  if (ballot == 0u) return;
+  if (k <= 32) {
+    uint64_t mine = lane < k ? L[lane] : SENTINEL;   // sorted over 32 lanes
+    while (ballot) {
+      const int src = __ffs(ballot) - 1;
+      ballot &= ballot - 1;
+      const uint64_t kk = __shfl_sync(0xFFFFFFFFu, key, src);
+      const int pos = __ffs(__ballot_sync(0xFFFFFFFFu, mine > kk)) - 1;
+      const uint64_t up = __shfl_up_sync(0xFFFFFFFFu, mine, 1);
+      if (pos >= 0 && pos < k && lane >= pos) mine = lane == pos ? kk : up;
+    }
+    if (lane < k) L[lane] = mine;
+    __syncwarp();
+    return;
+  }
   while (ballot) {
     const int src = __ffs(ballot) - 1;
     ballot &= ballot - 1;
@@ -187,38 +343,54 @@ __device__ __forceinline__ void warp_insert(uint64_t* L, int k, uint64_t key,
   }
 }
 
-// Pass 1: block (split, query tile) -> the k smallest keys of its rows for
+// Offer the keys of rows r0 .. r0 + 3 (distances d0 .. d3; rows at or past
+// r_end are not offered) from every lane.  Not inlined: the scan calls it
+// for few tiles, and one copy keeps the scan's code small.
+__device__ __noinline__ void insert_rows(uint64_t* L, int k, uint32_t d0,
+                                         uint32_t d1, uint32_t d2,
+                                         uint32_t d3, int r0, int r_end,
+                                         int lane) {
+  const uint32_t dk[4] = {d0, d1, d2, d3};
+#pragma unroll 1
+  for (int e = 0; e < 4; ++e) {
+    const int r = r0 + e;
+    const uint64_t key = ((uint64_t)dk[e] << 32) | (uint32_t)r;
+    warp_insert(L, k, key, r < r_end && key < L[k - 1], lane);
+  }
+}
+
+// Pass 1: block (query tile, split) -> the k smallest keys of its rows for
 // each of its queries, in part_keys[q][split][0, k), and its threshold
 // count in part_counts[q][split].
-template <int BQ, bool MASKED, bool COUNTED>
+template <int P, int BQ, bool MASKED, bool COUNTED>
 __global__ void __launch_bounds__(THREADS)
-cam_topk_partial_kernel(const int8_t* __restrict__ q,
-                        const int8_t* __restrict__ t,
-                        const int8_t* __restrict__ care,
+cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
+                        const uint32_t* __restrict__ tp,
+                        const uint32_t* __restrict__ cp,
                         const int32_t* __restrict__ valid_rows,
                         const float* __restrict__ count_le,
                         uint64_t* __restrict__ part_keys,
                         int32_t* __restrict__ part_counts, int Q, int N,
-                        int D, int levels, int k, int splits,
+                        int D, int GP, int k, int splits,
                         int rows_per_split) {
   constexpr int TQ = BQ / 16;
   constexpr int WARPS = THREADS / 32;
   constexpr int QPW = BQ / WARPS;            // queries per warp
+  static_assert(BN == 4 * 32, "the scan gives each lane 4 rows of a tile");
   extern __shared__ uint64_t smem[];
   uint64_t* lists = smem;                                  // [BQ][k]
   uint32_t* dist = reinterpret_cast<uint32_t*>(lists + BQ * k);  // [BQ][BN]
-  uint32_t* qs = dist + BQ * BN;
+  uint32_t* qs = dist + BQ * BN;             // 16-byte aligned: BQ * BN * 4
   uint32_t* ts = qs + BQ * LDW;
   uint32_t* cs = ts + BN * LDW;
 
-  const int split = blockIdx.x, q0 = blockIdx.y * BQ;
+  const int split = blockIdx.y, q0 = blockIdx.x * BQ;
   const int r_begin = split * rows_per_split;
   const int r_end = min(N, r_begin + rows_per_split);
   const int vr = min(*valid_rows, N);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int dtot = (D + DC - 1) / DC * DC;
-  const uint32_t lim_add = lim_add_of(levels);
+  const bool one_chunk = GP * Layout<P>::W <= CW;
 
   for (int i = threadIdx.x; i < BQ * k; i += THREADS) lists[i] = SENTINEL;
   int cnt[QPW];
@@ -233,31 +405,46 @@ cam_topk_partial_kernel(const int8_t* __restrict__ q,
 
   for (int n0 = r_begin; n0 < r_end; n0 += BN) {
     int acc[TQ][TN];
-    tile_counts<BQ, MASKED>(acc, q, t, care, q0, Q, n0, N, D, lim_add, qs,
-                            ts, cs);
+    tile_counts<P, BQ, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP,
+                               !one_chunk || n0 == r_begin, qs, ts, cs);
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j)
         dist[(ty * TQ + i) * BN + tx + 16 * j] =
-            MASKED ? acc[i][j] : dtot - acc[i][j];
+            MASKED ? acc[i][j] : D - acc[i][j];
     __syncthreads();
+    // Each lane takes 4 consecutive rows of the tile.  Most tiles hold no
+    // row below the list's largest key once the list is full, so a 32-bit
+    // filter and one vote skip them.  It is exact: the list's keys come
+    // from earlier (lower) rows of this split or are SENTINEL, so a row at
+    // the largest key's distance enters only while that key is SENTINEL.
 #pragma unroll
     for (int s = 0; s < QPW; ++s) {
       const int ql = warp + WARPS * s;
       if (q0 + ql >= Q) continue;              // warp-uniform
       uint64_t* L = lists + ql * k;
-      for (int c = lane; c < BN; c += 32) {
-        const int r = n0 + c;
-        const bool real = r < r_end;
-        const bool live = r < vr;
-        const uint32_t dc = dist[ql * BN + c];
+      const uint4 d4 =
+          *reinterpret_cast<const uint4*>(dist + ql * BN + 4 * lane);
+      const uint32_t dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      const uint64_t last = L[k - 1];
+      const uint32_t worst = (uint32_t)(last >> 32);
+      const bool open = last == SENTINEL;
+      uint32_t dk[4];
+      bool cand = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = n0 + 4 * lane + e;
+        const bool real = r < r_end, live = r < vr;
         if (COUNTED && real)
-          cnt[s] += (live ? (float)dc : __int_as_float(0x7F800000)) <= thr[s];
-        const uint64_t key =
-            ((uint64_t)(live ? dc : 0xFFFFFFFFu) << 32) | (uint32_t)r;
-        warp_insert(L, k, key, real && key < L[k - 1], lane);
+          cnt[s] += (live ? (float)dv[e] : __int_as_float(0x7F800000)) <=
+                    thr[s];
+        dk[e] = live ? dv[e] : 0xFFFFFFFFu;
+        cand |= real && (dk[e] < worst || (open && dk[e] == worst));
       }
+      if (__any_sync(0xFFFFFFFFu, cand))
+        insert_rows(L, k, dk[0], dk[1], dk[2], dk[3], n0 + 4 * lane, r_end,
+                    lane);
     }
     __syncthreads();
   }
@@ -314,111 +501,169 @@ cam_topk_merge_kernel(const uint64_t* __restrict__ part_keys,
   }
 }
 
-template <int BQ, bool MASKED>
-cudaError_t launch_dense(const int8_t* q, const int8_t* t, const int8_t* care,
-                         int32_t* out, int Q, int N, int D, int levels,
-                         cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (Q + BQ - 1) / BQ);
-  cam_search_kernel<BQ, MASKED>
-      <<<grid, THREADS, 0, stream>>>(q, t, care, out, Q, N, D, levels);
+template <int P>
+cudaError_t launch_pack(const int8_t* q, const int8_t* t, const int8_t* care,
+                        uint32_t* qp, uint32_t* tp, uint32_t* cp, int Q,
+                        int N, int D, int GP, int levels,
+                        cudaStream_t stream) {
+  const long long items = (long long)(Q + N) * GP;
+  const long long blocks = (items + PACK_THREADS - 1) / PACK_THREADS;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  cam_pack_kernel<P><<<(unsigned)blocks, PACK_THREADS, 0, stream>>>(
+      q, t, care, qp, tp, cp, Q, N, D, GP, lim_add_of(levels));
   return cudaGetLastError();
 }
 
-template <int BQ, bool MASKED, bool COUNTED>
-cudaError_t launch_partial(const int8_t* q, const int8_t* t,
-                           const int8_t* care, const int32_t* vr,
+template <int P, int BQ, bool MASKED>
+cudaError_t launch_dense(const uint32_t* qp, const uint32_t* tp,
+                         const uint32_t* cp, int32_t* out, int Q, int N,
+                         int D, int GP, cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (Q + BQ - 1) / BQ);
+  cam_search_kernel<P, BQ, MASKED>
+      <<<grid, THREADS, 0, stream>>>(qp, tp, cp, out, Q, N, D, GP);
+  return cudaGetLastError();
+}
+
+template <int P, int BQ, bool MASKED, bool COUNTED>
+cudaError_t launch_partial(const uint32_t* qp, const uint32_t* tp,
+                           const uint32_t* cp, const int32_t* vr,
                            const float* count_le, uint64_t* part_keys,
-                           int32_t* part_counts, int Q, int N, int D,
-                           int levels, int k, int splits, int rows_per_split,
+                           int32_t* part_counts, int Q, int N, int D, int GP,
+                           int k, int splits, int rows_per_split,
                            cudaStream_t stream) {
-  const size_t smem = (size_t)BQ * k * sizeof(uint64_t) +
-                      (size_t)BQ * BN * sizeof(uint32_t) +
-                      (size_t)(BQ + BN + (MASKED ? BN : 0)) * LDW *
-                          sizeof(uint32_t);
-  auto kernel = cam_topk_partial_kernel<BQ, MASKED, COUNTED>;
+  const size_t smem =
+      (size_t)BQ * k * sizeof(uint64_t) +
+      (size_t)BQ * BN * sizeof(uint32_t) +
+      (size_t)(BQ + BN) * LDW * sizeof(uint32_t) +
+      (MASKED ? (size_t)BN * Layout<P>::LDC * sizeof(uint32_t) : 0);
+  auto kernel = cam_topk_partial_kernel<P, BQ, MASKED, COUNTED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(splits, (Q + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, smem, stream>>>(q, t, care, vr, count_le, part_keys,
-                                          part_counts, Q, N, D, levels, k,
-                                          splits, rows_per_split);
+  // the query tiles of a split run side by side and share its rows in L2
+  const dim3 grid((Q + BQ - 1) / BQ, splits);
+  kernel<<<grid, THREADS, smem, stream>>>(qp, tp, cp, vr, count_le, part_keys,
+                                          part_counts, Q, N, D, GP, k, splits,
+                                          rows_per_split);
   return cudaGetLastError();
 }
 
-template <int BQ>
-cudaError_t launch_partial_bq(bool masked, bool counted, const int8_t* q,
-                              const int8_t* t, const int8_t* care,
-                              const int32_t* vr, const float* count_le,
-                              uint64_t* part_keys, int32_t* part_counts,
-                              int Q, int N, int D, int levels, int k,
-                              int splits, int rows_per_split,
-                              cudaStream_t stream) {
-#define REPRO_PARTIAL(M, C)                                                   \
-  return launch_partial<BQ, M, C>(q, t, care, vr, count_le, part_keys,       \
-                                  part_counts, Q, N, D, levels, k, splits,   \
-                                  rows_per_split, stream)
-  if (masked) {
-    if (counted) REPRO_PARTIAL(true, true);
-    REPRO_PARTIAL(true, false);
+// The instantiation for (planes, tile_q, masked[, counted]).
+#define REPRO_BY_P(CALL)                                                     \
+  switch (planes) {                                                          \
+    case 1: CALL(1); case 3: CALL(3); case 7: CALL(7);                       \
+    default: return cudaErrorInvalidValue;                                   \
   }
-  if (counted) REPRO_PARTIAL(false, true);
-  REPRO_PARTIAL(false, false);
+
+cudaError_t dense(int planes, int tile_q, const uint32_t* qp,
+                  const uint32_t* tp, const uint32_t* cp, int32_t* out, int Q,
+                  int N, int D, int GP, cudaStream_t s) {
+#define REPRO_DENSE(P)                                                       \
+  if (tile_q == 16)                                                          \
+    return cp ? launch_dense<P, 16, true>(qp, tp, cp, out, Q, N, D, GP, s)   \
+              : launch_dense<P, 16, false>(qp, tp, cp, out, Q, N, D, GP, s); \
+  return cp ? launch_dense<P, 64, true>(qp, tp, cp, out, Q, N, D, GP, s)     \
+            : launch_dense<P, 64, false>(qp, tp, cp, out, Q, N, D, GP, s)
+  REPRO_BY_P(REPRO_DENSE)
+#undef REPRO_DENSE
+}
+
+cudaError_t partial(int planes, int tile_q, bool counted, const uint32_t* qp,
+                    const uint32_t* tp, const uint32_t* cp, const int32_t* vr,
+                    const float* thr, uint64_t* pk, int32_t* pc, int Q, int N,
+                    int D, int GP, int k, int splits, int rows_per_split,
+                    cudaStream_t s) {
+#define REPRO_PART(P, BQ, M, C)                                              \
+  return launch_partial<P, BQ, M, C>(qp, tp, cp, vr, thr, pk, pc, Q, N, D,   \
+                                     GP, k, splits, rows_per_split, s)
+#define REPRO_PARTIAL(P)                                                     \
+  if (tile_q == 16) {                                                        \
+    if (cp) {                                                                \
+      if (counted) REPRO_PART(P, 16, true, true);                            \
+      REPRO_PART(P, 16, true, false);                                        \
+    }                                                                        \
+    if (counted) REPRO_PART(P, 16, false, true);                             \
+    REPRO_PART(P, 16, false, false);                                         \
+  }                                                                          \
+  if (cp) {                                                                  \
+    if (counted) REPRO_PART(P, 64, true, true);                              \
+    REPRO_PART(P, 64, true, false);                                          \
+  }                                                                          \
+  if (counted) REPRO_PART(P, 64, false, true);                               \
+  REPRO_PART(P, 64, false, false)
+  REPRO_BY_P(REPRO_PARTIAL)
 #undef REPRO_PARTIAL
+#undef REPRO_PART
 }
 
 }  // namespace
 
-// (Q, D) queries, (N, D) table [, (N, D) care] int8 -> (Q, N) int32.
-// Pointers are device pointers; `care` may be null.  `tile_q` (16 or 64)
-// is the queries per block.  Returns the CUDA error code of the launch
-// (0 on success).
-extern "C" int cam_search_launch(const void* q, const void* t,
-                                 const void* care, void* out, int Q, int N,
-                                 int D, int levels, int tile_q,
-                                 void* stream) {
-  if (tile_q != 16 && tile_q != 64) return (int)cudaErrorInvalidValue;
-  const auto* qp = static_cast<const int8_t*>(q);
-  const auto* tp = static_cast<const int8_t*>(t);
-  const auto* cp = static_cast<const int8_t*>(care);
-  auto* op = static_cast<int32_t*>(out);
+// The layout arguments every entry point takes: `planes` (1, 3 or 7) value
+// planes per 32-symbol group and `gp` groups per packed row, with
+// gp * 32 >= D and gp * (planes + 1) a multiple of 4 (the wrapper computes
+// both from D and `levels`).  Pointers are device pointers.  Each returns
+// the CUDA error code of its launches (0 on success).
+
+// (Q, D) queries and (N, D) table [and (N, D) care] int8 -> packed
+// (Q, gp, planes + 1) and (N, gp, planes + 1) words [and (N, gp) care
+// words].  `care` and `cp` may be null.  D is a multiple of 16; `levels`
+// is the symbol range (clamped to 128).
+extern "C" int cam_pack_launch(const void* q, const void* t, const void* care,
+                               void* qp, void* tp, void* cp, int Q, int N,
+                               int D, int levels, int planes, int gp,
+                               void* stream) {
+  if (Q < 1 || N < 1 || D < 16 || D % 16 || levels < 1 || gp * 32 < D ||
+      gp * (planes + 1) % 4)
+    return (int)cudaErrorInvalidValue;
+  const auto* qs = static_cast<const int8_t*>(q);
+  const auto* ts = static_cast<const int8_t*>(t);
+  const auto* cs = static_cast<const int8_t*>(care);
+  auto* qo = static_cast<uint32_t*>(qp);
+  auto* to = static_cast<uint32_t*>(tp);
+  auto* co = care ? static_cast<uint32_t*>(cp) : nullptr;
   auto s = static_cast<cudaStream_t>(stream);
-  if (tile_q == 16)
-    return cp ? launch_dense<16, true>(qp, tp, cp, op, Q, N, D, levels, s)
-              : launch_dense<16, false>(qp, tp, cp, op, Q, N, D, levels, s);
-  return cp ? launch_dense<64, true>(qp, tp, cp, op, Q, N, D, levels, s)
-            : launch_dense<64, false>(qp, tp, cp, op, Q, N, D, levels, s);
+#define REPRO_PACK(P)                                                        \
+  return (int)launch_pack<P>(qs, ts, cs, qo, to, co, Q, N, D, gp, levels, s)
+  REPRO_BY_P(REPRO_PACK)
+#undef REPRO_PACK
 }
 
-// Fused top-k, both passes.  `care` and `count_le` may be null; with
-// `count_le`, `part_counts` ((Q, splits) int32) and `out_count` ((Q,)
-// int32) must be given.  `part_keys` is (Q, splits, k) uint64 scratch.
-// `valid_rows` is a device int32 the kernel reads itself.  `tile_q` (16
-// or 64) is the queries per block of pass 1.
+// Packed queries and table [and care words] -> (Q, N) int32 mismatches.
+// `cp` may be null.  `tile_q` (16 or 64) is the queries per block.
+extern "C" int cam_search_launch(const void* qp, const void* tp,
+                                 const void* cp, void* out, int Q, int N,
+                                 int D, int planes, int gp, int tile_q,
+                                 void* stream) {
+  if (tile_q != 16 && tile_q != 64) return (int)cudaErrorInvalidValue;
+  return (int)dense(planes, tile_q, static_cast<const uint32_t*>(qp),
+                    static_cast<const uint32_t*>(tp),
+                    static_cast<const uint32_t*>(cp),
+                    static_cast<int32_t*>(out), Q, N, D, gp,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Fused top-k, both passes, on packed inputs.  `cp` and `count_le` may be
+// null; with `count_le`, `part_counts` ((Q, splits) int32) and `out_count`
+// ((Q,) int32) must be given.  `part_keys` is (Q, splits, k) uint64
+// scratch.  `valid_rows` is a device int32 the kernel reads itself.
+// `tile_q` (16 or 64) is the queries per block of pass 1.
 extern "C" int cam_search_topk_launch(
-    const void* q, const void* t, const void* care, const void* valid_rows,
+    const void* qp, const void* tp, const void* cp, const void* valid_rows,
     const void* count_le, void* part_keys, void* part_counts, void* out_idx,
-    void* out_dist, void* out_count, int Q, int N, int D, int levels, int k,
-    int splits, int rows_per_split, int tile_q, void* stream) {
+    void* out_dist, void* out_count, int Q, int N, int D, int planes, int gp,
+    int k, int splits, int rows_per_split, int tile_q, void* stream) {
   if (k < 1 || k > MAX_K || (tile_q != 16 && tile_q != 64))
     return (int)cudaErrorInvalidValue;
-  const auto* qp = static_cast<const int8_t*>(q);
-  const auto* tp = static_cast<const int8_t*>(t);
-  const auto* cp = static_cast<const int8_t*>(care);
-  const auto* vr = static_cast<const int32_t*>(valid_rows);
-  const auto* thr = static_cast<const float*>(count_le);
   auto* pk = static_cast<uint64_t*>(part_keys);
   auto* pc = static_cast<int32_t*>(part_counts);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool masked = cp != nullptr, counted = thr != nullptr;
-  cudaError_t err =
-      tile_q == 16
-          ? launch_partial_bq<16>(masked, counted, qp, tp, cp, vr, thr, pk, pc,
-                                  Q, N, D, levels, k, splits, rows_per_split,
-                                  s)
-          : launch_partial_bq<64>(masked, counted, qp, tp, cp, vr, thr, pk, pc,
-                                  Q, N, D, levels, k, splits, rows_per_split,
-                                  s);
+  const bool counted = count_le != nullptr;
+  cudaError_t err = partial(
+      planes, tile_q, counted, static_cast<const uint32_t*>(qp),
+      static_cast<const uint32_t*>(tp), static_cast<const uint32_t*>(cp),
+      static_cast<const int32_t*>(valid_rows),
+      static_cast<const float*>(count_le), pk, pc, Q, N, D, gp, k, splits,
+      rows_per_split, s);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (Q + MERGE_WARPS - 1) / MERGE_WARPS;
   const size_t smem = (size_t)MERGE_WARPS * k * sizeof(uint64_t);

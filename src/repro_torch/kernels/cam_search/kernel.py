@@ -7,17 +7,22 @@
   streaming per-query top-k, ``valid_rows`` masked in-kernel, optional
   threshold count.  Bitwise ``lax.top_k`` order over the dense masked
   matrix: ascending (distance, row index), +inf masked rows included.
+* :func:`pack` runs the pack kernel both of them start with: queries,
+  table and care plane to bit-planes (:func:`~repro_torch.kernels.
+  cam_search.ref.pack_planes` is its plain version).
 
 Symbols are int8.  Unmasked, a position matches iff ``q == t`` and
 ``0 <= q < levels``; masked, it is a mismatch iff ``care != 0`` and
-``0 <= q < levels`` and ``q != t`` — the one-hot rule of the TPU kernels.
+``0 <= q < levels`` and ``q != t`` — the one-hot rule of the TPU kernels
+(:func:`~repro_torch.kernels.cam_search.ref.onehot_counts`).
 
 The wrappers take CUDA tensors only and check device, dtype, shape,
-contiguity and alignment; they allocate outputs with ``torch.empty``,
-launch on the current stream and raise if the launch returns a CUDA error.
-Each counts its launches in :data:`launches` (one per call, although the
-fused kernel runs as two passes).  The library is built and loaded at the
-first launch, never at import.
+contiguity and alignment; they allocate outputs and the packed scratch with
+``torch.empty``, launch on the current stream and raise if a launch returns
+a CUDA error.  Each counts its launches in :data:`launches`: a search call
+adds one to ``cam_pack`` and one to its own kernel (although the fused
+kernel runs as two passes).  The library is built and loaded at the first
+launch, never at import.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LaunchCounts, check, raise_on, stream
+from repro_torch.kernels.cam_search.ref import plane_layout
 
 #: Largest ``k`` :func:`cam_search_topk` takes.
 MAX_K = 256
@@ -44,7 +50,7 @@ D_MULTIPLE = 16
 SMALL_TILE_MAX_Q = 16
 
 #: Wrapper calls that launched their kernel, by kernel name.
-launches = LaunchCounts("cam_search", "cam_search_topk")
+launches = LaunchCounts("cam_search", "cam_search_topk", "cam_pack")
 reset_launches = launches.reset
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -53,9 +59,11 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("cam_search")
     if not hasattr(lib, "_repro_bound"):
-        lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 5 + [_VP]
+        lib.cam_pack_launch.argtypes = [_VP] * 6 + [_I] * 6 + [_VP]
+        lib.cam_pack_launch.restype = _I
+        lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 6 + [_VP]
         lib.cam_search_launch.restype = _I
-        lib.cam_search_topk_launch.argtypes = [_VP] * 10 + [_I] * 8 + [_VP]
+        lib.cam_search_topk_launch.argtypes = [_VP] * 10 + [_I] * 9 + [_VP]
         lib.cam_search_topk_launch.restype = _I
         lib._repro_bound = True
     return lib
@@ -94,16 +102,39 @@ def _tile(qn: int) -> int:
     return 16 if qn <= SMALL_TILE_MAX_Q else 64
 
 
+def pack(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
+         care: torch.Tensor | None = None):
+    """One launch of the pack kernel: (Q, D) queries and (N, D) table
+    [and (N, D) care] int8 -> ((Q, G, W), (N, G, W) [, (N, G)]) int32
+    bit-plane words, the layout of ``ref.plane_layout(D, levels)``; the
+    third is None without ``care``."""
+    qn, n, d, dev = _check_inputs(queries, table, care)
+    planes, words, groups = plane_layout(d, levels)
+    qp = torch.empty((qn, groups, words), dtype=torch.int32, device=dev)
+    tp = torch.empty((n, groups, words), dtype=torch.int32, device=dev)
+    cp = (None if care is None else
+          torch.empty((n, groups), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        err = _lib().cam_pack_launch(
+            queries.data_ptr(), table.data_ptr(), _ptr(care), qp.data_ptr(),
+            tp.data_ptr(), _ptr(cp), qn, n, d, levels, planes, groups,
+            stream(dev))
+    raise_on(err, "cam_pack")
+    launches.add("cam_pack")
+    return qp, tp, cp
+
+
 def cam_search(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
                care: torch.Tensor | None = None) -> torch.Tensor:
     """(Q, D) x (N, D) int8 [+ (N, D) int8 care] -> (Q, N) int32 mismatches."""
     qn, n, d, dev = _check_inputs(queries, table, care)
-    bq = _tile(qn)
+    qp, tp, cp = pack(queries, table, levels=levels, care=care)
+    planes, _, groups = plane_layout(d, levels)
     out = torch.empty((qn, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().cam_search_launch(
-            queries.data_ptr(), table.data_ptr(), _ptr(care), out.data_ptr(),
-            qn, n, d, levels, bq, stream(dev))
+            qp.data_ptr(), tp.data_ptr(), _ptr(cp), out.data_ptr(), qn, n, d,
+            planes, groups, _tile(qn), stream(dev))
     raise_on(err, "cam_search")
     launches.add("cam_search")
     return out
@@ -135,6 +166,8 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
         _check16("count_le", count_le, torch.float32, (qn, 1), dev)
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} outside [1, min(N={n}, {MAX_K})]")
+    qp, tp, cp = pack(queries, table, levels=levels, care=care)
+    planes, _, groups = plane_layout(d, levels)
     bq = _tile(qn)
     splits, rows_per_split = _splits(-(-qn // bq), n, dev)
     part_keys = torch.empty((qn, splits, k), dtype=torch.int64, device=dev)
@@ -146,11 +179,10 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
         count = torch.empty((qn,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().cam_search_topk_launch(
-            queries.data_ptr(), table.data_ptr(), _ptr(care),
-            valid_rows.data_ptr(), _ptr(count_le), part_keys.data_ptr(),
-            _ptr(part_counts), idx.data_ptr(), dist.data_ptr(), _ptr(count),
-            qn, n, d, levels, k, splits, rows_per_split, bq,
-            stream(dev))
+            qp.data_ptr(), tp.data_ptr(), _ptr(cp), valid_rows.data_ptr(),
+            _ptr(count_le), part_keys.data_ptr(), _ptr(part_counts),
+            idx.data_ptr(), dist.data_ptr(), _ptr(count), qn, n, d, planes,
+            groups, k, splits, rows_per_split, bq, stream(dev))
     raise_on(err, "cam_search_topk")
     launches.add("cam_search_topk")
     if count_le is None:

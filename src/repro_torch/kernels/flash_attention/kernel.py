@@ -10,6 +10,12 @@ are never repeated.  Any Sq and Skv are taken (the kernel masks its ragged
 tiles); the block-multiple contract of the reference lives in
 :mod:`~repro_torch.kernels.flash_attention.ops`.
 
+The dtype picks the kernel, by design and not as a fallback: bfloat16
+inputs run the tensor-core kernel (``mma.sync`` bf16 products with float32
+accumulation, FlashAttention-2's structure), float32 inputs the CUDA-core
+kernel in full float32 (TF32 tensor cores would break the reference's 2e-5
+tolerance).  Both count as ``flash_attention`` launches.
+
 The wrapper takes CUDA tensors only and checks device, dtype, shape and
 contiguity; it allocates the output with ``torch.empty``, launches on the
 current stream and raises if the launch returns a CUDA error.  It counts
@@ -51,7 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group: int, causal: bool = True) -> torch.Tensor:
     """q: (BH, Sq, dh); k/v: (BH//group, Skv, dh) -> (BH, Sq, dh).
 
-    All float32 or all bfloat16 on one CUDA device; 1 <= dh <= 256.
+    All float32 (CUDA-core kernel) or all bfloat16 (tensor-core kernel) on
+    one CUDA device; 1 <= dh <= 256.
     """
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
         raise ValueError("q must be a CUDA tensor")

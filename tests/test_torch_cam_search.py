@@ -7,6 +7,13 @@ the port on the CPU, where ``ops`` takes the plain PyTorch versions.
 Tolerance: bitwise, for indices, distances, counts, flags and dtypes.
 Inputs cover care planes, threshold counts, ``valid_rows`` below k,
 tie-heavy tables (bits = 1, duplicate rows), k in {1, 7, 256} and ragged N.
+
+The CUDA kernels count on bit-planes by the one-hot rule of the TPU
+kernels; their plain versions (``ref.pack_planes``, ``ref.pack_care``,
+``ref.plane_counts``, and ``levels=`` in ``ref.mismatch_counts`` and
+``ref.topk``) are held against the Pallas kernels in interpret mode on
+symbols outside ``[0, 2**bits)`` in queries and table, at levels 2, 8 and
+128 and D = 16 and 48 (a half-empty last 32-symbol group).
 """
 
 import numpy as np
@@ -135,4 +142,84 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.cam_search_topk(q, t, torch.tensor([4], dtype=torch.int32),
                                 levels=8, k=1)
-    assert tkernel.launches == {"cam_search": 0, "cam_search_topk": 0}
+    assert tkernel.launches == {"cam_search": 0, "cam_search_topk": 0,
+                                "cam_pack": 0}
+
+
+def _out_of_range_case(seed, bits, qn, n, d, care=False):
+    """Symbols a few values past both ends of [0, 2**bits), a third of each
+    query over all of int8; one exact row, one in-range query, and query 2
+    a copy of row 3 but for symbol 1, with both rules' cases at symbols 0
+    and 1 (cared for)."""
+    rng = np.random.default_rng(seed)
+    m = 1 << bits
+    table = rng.integers(-3, min(m, 125) + 3, (n, d)).astype(np.int32)
+    table[2::7] = table[1]
+    queries = rng.integers(-3, min(m, 125) + 3, (qn, d)).astype(np.int32)
+    queries[:, : d // 3] = rng.integers(-128, 128, (qn, d // 3))
+    queries[0] = table[1]
+    queries[1] = rng.integers(0, m, d)
+    table[3, 0] = -2
+    queries[2] = table[3]
+    queries[2, 1] = -5
+    c = None
+    if care:
+        c = (rng.random((n, d)) > 0.3).astype(np.int32)
+        c[3, :2] = 1
+    return queries, table, c
+
+
+def _i8(x):
+    return None if x is None else torch.from_numpy(x).to(torch.int8)
+
+
+@pytest.mark.parametrize("bits", [1, 3, 7])
+@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("care", [False, True])
+def test_plane_rule_matches_pallas_interpret(bits, d, care):
+    """Pack and plane counts (the kernels' arithmetic, in plain PyTorch)
+    and the direct one-hot rule against the Pallas cam_search."""
+    q, t, c = _out_of_range_case(bits * d, bits, 5, 40, d, care)
+    want = np.asarray(jops.mismatch_counts(q, t, bits, interpret=True,
+                                           care=c))
+    levels = 1 << bits
+    qp, tp = tref.pack_planes(_i8(q), levels), tref.pack_planes(_i8(t), levels)
+    cp = None if c is None else tref.pack_care(_t(c), levels)
+    _eq(tref.plane_counts(qp, tp, cp, d), want)
+    _eq(tref.mismatch_counts(_i8(q), _i8(t), _t(c), levels=levels), want)
+    # the value rule of the reference's ref differs on these inputs
+    assert not np.array_equal(
+        tref.mismatch_counts(_i8(q), _i8(t), _t(c)).numpy(), want)
+
+
+@pytest.mark.parametrize("bits,care,k,valid_rows", [
+    (1, False, 1, None),
+    (3, True, 7, 30),
+    (7, True, 10, 5),            # valid_rows below k: +inf rows by index
+])
+def test_onehot_topk_matches_pallas_interpret(bits, care, k, valid_rows):
+    q, t, c = _out_of_range_case(k, bits, 6, 40, 48, care)
+    thr = np.array([0, 10, 20, 30, 40, 48], np.float32)
+    want = jops.topk_fused(q, t, k=k, bits=bits, valid_rows=valid_rows,
+                           interpret=True, care=c, count_le=thr)
+    got = tref.topk(_i8(q), _i8(t), k, valid_rows=valid_rows, care=_t(c),
+                    count_le=torch.from_numpy(thr[:, None]),
+                    levels=1 << bits)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+def test_plane_layout_and_bit_order():
+    """Symbol 4i + j of a group lands at bit 8j + i of every plane; groups
+    are rounded up so that rows are a multiple of four words."""
+    assert tref.plane_layout(256, 8) == (3, 4, 8)
+    assert tref.plane_layout(1792, 2) == (1, 2, 56)
+    assert tref.plane_layout(48, 2) == (1, 2, 2)
+    assert tref.plane_layout(16, 128) == (7, 8, 1)
+    assert tref.plane_layout(32, 1) == (1, 2, 2)
+    x = torch.zeros((1, 32), dtype=torch.int8)
+    x[0, 4 * 5 + 2] = 3                      # i = 5, j = 2: bit 21
+    x[0, 31] = 9                             # out of range at levels 8
+    w = [int(v) & 0xFFFFFFFF for v in tref.pack_planes(x, 8)[0, 0]]
+    assert w == [1 << 21 | 1 << 31, 1 << 21, 0, 0x7FFFFFFF]

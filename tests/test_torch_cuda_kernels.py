@@ -5,7 +5,9 @@ present and skips without one.  On a GPU machine run
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda_kernels.py`` (``--noconftest``: the suite's conftest
 pins JAX, which a GPU machine for the port need not have).
-Tolerances: the CAM-search kernels bitwise (indices, distances, counts);
+Tolerances: the CAM-search kernels and their pack kernel bitwise
+(indices, distances, counts, plane words), also on symbols outside
+``[0, levels)`` against the plain one-hot rule;
 ``hdc_encode`` the reference's (under 0.5 % of codes differ from the plain
 version, none by more than one level: float32 summation order); ``mibo_mc``
 rtol 1e-5, atol 1e-12 (``tests/test_kernels.py``); ``flash_attention``
@@ -75,6 +77,45 @@ def test_kernels_bitwise_against_plain(dev, monkeypatch, small_tile_max_q,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("small_tile_max_q", [16, 0])
+@pytest.mark.parametrize("bits", [1, 3, 7])
+@pytest.mark.parametrize("d,care", [(16, False), (48, True), (48, False)])
+def test_kernels_follow_the_onehot_rule(dev, monkeypatch, small_tile_max_q,
+                                        bits, d, care):
+    """Out-of-range symbols in queries and table: the pack kernel against
+    its plain version, both search kernels against the one-hot rule."""
+    monkeypatch.setattr(kernel, "SMALL_TILE_MAX_Q", small_tile_max_q)
+    rng = np.random.default_rng(bits * d)
+    m = 1 << bits
+    t = rng.integers(-3, min(m, 125) + 3, (1500, d))
+    q = rng.integers(-3, min(m, 125) + 3, (20, d))
+    q[:, : d // 3] = rng.integers(-128, 128, (20, d // 3))
+    t[2::7] = t[1]
+    q[0] = t[1]
+    t8 = torch.from_numpy(t).to(dev).to(torch.int8)
+    q8 = torch.from_numpy(q).to(dev).to(torch.int8)
+    c = (torch.from_numpy((rng.random((1500, d)) > 0.3).astype(np.int8))
+         .to(dev) if care else None)
+    kernel.reset_launches()
+    packed = kernel.pack(q8, t8, levels=m, care=c)
+    assert torch.equal(packed[0], ref.pack_planes(q8, m))
+    assert torch.equal(packed[1], ref.pack_planes(t8, m))
+    assert (packed[2] is None if c is None
+            else torch.equal(packed[2], ref.pack_care(c, m)))
+    assert torch.equal(kernel.cam_search(q8, t8, levels=m, care=c),
+                       ref.mismatch_counts(q8, t8, c, levels=m))
+    vr = torch.tensor([1400], dtype=torch.int32, device=dev)
+    thr = torch.full((20, 1), float(d // 2), device=dev)
+    got = kernel.cam_search_topk(q8, t8, vr, levels=m, k=10, care=c,
+                                 count_le=thr)
+    want = ref.topk(q8, t8, 10, valid_rows=1400, care=c, count_le=thr,
+                    levels=m)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kernel.launches == {"cam_search": 1, "cam_search_topk": 1,
+                               "cam_pack": 3}
+
+
 def test_search_on_the_card_matches_the_cpu(dev):
     rng = np.random.default_rng(1)
     codes = rng.integers(0, 8, (3000, 64)).astype(np.int32)
@@ -136,6 +177,8 @@ def test_mibo_mc_against_plain(dev, s, c):
     (1, 128, 256, 4, 4, 128, False), (2, 384, 128, 6, 2, 32, False),
     (2, 128, 128, 8, 2, 8, True), (1, 7, 7, 8, 2, 8, True),
     (1, 256, 256, 2, 1, 256, True), (1, 100, 100, 4, 2, 40, True),
+    (1, 64, 64, 8, 1, 16, True), (2, 100, 100, 16, 2, 40, False),
+    (1, 1024, 1024, 8, 1, 128, True), (1, 7, 7, 8, 1, 100, True),
 ])
 def test_flash_attention_against_plain(dev, dtype, b, s, t, h, hk, dh,
                                        causal):

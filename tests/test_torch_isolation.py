@@ -136,7 +136,8 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     transformer.forward(model, flash, torch.zeros((1, 8), dtype=torch.int64))
     launch_serve.main(["--device", "cpu", "--requests", "2", "--max-new",
                        "2"])
-    assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0}
+    assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,
+                               "cam_pack": 0}
     assert enc_kernel.launches == {"hdc_encode": 0}
     assert mc_kernel.launches == {"mibo_mc": 0}
     assert fl_kernel.launches == {"flash_attention": 0}
