@@ -31,8 +31,11 @@ exits non-zero without the final ``ok`` line:
    (``predict_cam`` on the CUDA backend equal to the ``ref`` backend), the
    ``analog`` backend, and the ucihar claims of ``tests/test_system.py``;
    ``hdc_encode`` runs ``encode_quantize`` on each Table III stand-in's
-   training features; ``fig9_mc`` runs the Fig. 9 Monte-Carlo study at
-   bits 1-3 and checks the 3-bit margin;
+   training features, each held to the reference tolerance and to
+   ``ENCODE_FP32_FRACTION`` (at most that fraction of codes differ from
+   the plain float32 version: a single TF32 product fails it);
+   ``fig9_mc`` runs the Fig. 9 Monte-Carlo study at bits 1-3 and checks
+   the 3-bit margin;
 4b. the dense LM, yi-6b at full width and depth with random weights drawn
    on the card: ``lm_prefill`` runs the forward at B = 1, S = 4,096 with
    ``attn_impl="flash"`` (32 flash launches) and holds its logits against
@@ -45,7 +48,10 @@ exits non-zero without the final ``ok`` line:
    token for two prompts against the forward's argmax;
 5. each kernel held against its plain version and timed with CUDA events
    at the shapes its paths gave it, beside its bound, its plain version
-   and a library call where one computes the same thing.
+   and a library call where one computes the same thing; ``hdc_encode``
+   also against ``torch.matmul``'s time for the product alone, and
+   ``hdc_encode`` and ``mibo_mc`` also as device time (a CUDA graph of
+   launches) beside the time per call.
 
 Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
@@ -79,6 +85,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12       # tensor cores, dense
+TF32_OPS_PER_S = 495e12       # tensor cores, dense
 
 WIDTH, BITS = 256, 3
 CAPACITY, ROWS, CHUNK = 1 << 20, 1_000_000, 65_536
@@ -319,14 +326,20 @@ def _check_out_of_range(rng, dev):
               f"bitwise equal to plain (query tiles {_tiles(qn)})")
 
 
-def _encode_differs(got, want, where):
+def _encode_differs(got, want, where, fp32=False):
     """(fraction of codes that differ, largest difference), checked against
-    the reference tolerance: under 0.5 %, none by more than one level."""
+    the reference tolerance: under 0.5 %, none by more than one level;
+    with ``fp32`` also against ``ENCODE_FP32_FRACTION``, the gate of a
+    float32-accurate product."""
+    from repro_torch.kernels.hdc_encode import kernel
     diff = (got.long() - want.long()).abs()
     frac = (diff != 0).double().mean().item()
     top = int(diff.max().item())
     check(frac < 5e-3 and top <= 1, f"hdc_encode {where}: {frac:.2e} of "
           f"codes differ from plain, by up to {top}")
+    check(not fp32 or frac <= kernel.ENCODE_FP32_FRACTION,
+          f"hdc_encode {where}: {frac:.2e} of codes differ from plain, more "
+          f"than ENCODE_FP32_FRACTION = {kernel.ENCODE_FP32_FRACTION:.0e}")
     return frac, top
 
 
@@ -850,6 +863,7 @@ def _fig9_plain(stored, query, bits, state):
 def phase_app():
     import torch
     from repro_torch.core import mibo, quantize as q
+    from repro_torch.kernels.hdc_encode import kernel as enc_kernel
     from repro_torch.kernels.hdc_encode import ref as enc_ref
     paths = {}
     # the Table III stand-ins, made on the host before the paths run
@@ -871,9 +885,10 @@ def phase_app():
     encode_shapes = []
     for (name, x, proj), codes in zip(inputs, runs):
         frac, _ = _encode_differs(codes, enc_ref.encode_quantize(x, proj, thr),
-                                  f"{name} D={proj.shape[1]}")
+                                  f"{name} D={proj.shape[1]}", fp32=True)
         print(f"  hdc_encode {name}: B={x.shape[0]} n={x.shape[1]} "
-              f"D={proj.shape[1]}: {frac:.2e} of codes differ from plain")
+              f"D={proj.shape[1]}: {frac:.2e} of codes differ from plain "
+              f"(ENCODE_FP32_FRACTION {enc_kernel.ENCODE_FP32_FRACTION:.0e})")
         encode_shapes.append((x, proj))
     del runs
 
@@ -1096,6 +1111,32 @@ def _time_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
+def _graph_ms(fn, reps, warmup=2):
+    """Mean ms of ``reps`` calls captured in one CUDA graph and replayed
+    between one pair of events: the device's time, without the host's
+    work per call."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
 def _timed_once(fn):
     """(ms, result) of one call, timed with CUDA events."""
     import torch
@@ -1191,11 +1232,11 @@ def _tile_ms(fn):
 
 
 def _row(name, replaces, path, paths, shapes, err,
-         source="src/repro_torch/csrc/cam_search.cu"):
-    """One kernel's line.  ``ms``, ``plain_ms``, ``bound_ms`` and
-    ``library_ms`` are means over the groups that ``path`` dispatched, each
-    group's shape timed alone; ``launches`` sums the counts of every path,
-    and ``launches_by_path`` gives each."""
+         source="src/repro_torch/csrc/cam_search.cu", keys=()):
+    """One kernel's line.  ``ms``, ``plain_ms``, ``bound_ms``,
+    ``library_ms`` and each of ``keys`` are means over the groups that
+    ``path`` dispatched, each group's shape timed alone; ``launches`` sums
+    the counts of every path, and ``launches_by_path`` gives each."""
     main = [s for s in shapes if s["groups"]]
     g = sum(s["groups"] for s in main)
 
@@ -1214,7 +1255,7 @@ def _row(name, replaces, path, paths, shapes, err,
             "timed_path": path,
             "launches_by_path": {p: v["launches"][name]
                                  for p, v in paths.items()},
-            "shapes": shapes}
+            **{k: mean(k) for k in keys}, "shapes": shapes}
 
 
 def phase_timing(run, err):
@@ -1302,32 +1343,49 @@ def _fp32_bound(bytes_moved, ops):
 
 
 def _time_encode(x, proj, groups, err):
-    """One shape of hdc_encode: held against plain, then timed, beside the
-    plain version and torch.matmul's time for the product alone."""
+    """One shape of hdc_encode: held against plain (reference tolerance and
+    ``ENCODE_FP32_FRACTION``), then timed beside the plain version and
+    torch.matmul's time for the product alone.  ``ms`` and
+    ``matmul_product_only_ms`` are medians of calls timed one at a time
+    (the host's work per call included), ``device_ms`` and
+    ``matmul_device_ms`` device time per launch (20 launches in one CUDA
+    graph).  The bound is the tensor cores' route, three TF32 products at
+    495 TFLOP/s, against the bytes; ``fp32_cuda_core_bound_ms`` is the
+    same work in float32 on the CUDA cores."""
     from repro_torch.core import quantize as q
     from repro_torch.kernels.hdc_encode import kernel, ref
     (b, n), d = x.shape, proj.shape[1]
     thr = q.gaussian_thresholds(3, device=x.device)
     plain_ms, want = _timed_once(lambda: ref.encode_quantize(x, proj, thr))
     frac, top = _encode_differs(kernel.hdc_encode(x, proj, thr), want,
-                                f"timed B={b} n={n} D={d}")
+                                f"timed B={b} n={n} D={d}", fp32=True)
     err["hdc_encode"] = max(err["hdc_encode"], float(top))
     del want
     ms = _time_ms(lambda: kernel.hdc_encode(x, proj, thr), 10)
+    device_ms = _graph_ms(lambda: kernel.hdc_encode(x, proj, thr), 20)
     plain_ms = min(plain_ms, _time_ms(
         lambda: ref.encode_quantize(x, proj, thr), 3, 1))
     matmul_ms = _time_ms(lambda: x @ proj, 10)
+    matmul_device_ms = _graph_ms(lambda: x @ proj, 20)
     t = thr.numel()
-    t_b, t_o = _fp32_bound(4 * (b * n + n * d + t + b * d),
-                           2 * b * n * d + 2 * b * n + 2 * b * d * t)
+    bytes_moved = 4 * (b * n + n * d + t + b * d)
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_o = 3 * 2 * b * n * d / TF32_OPS_PER_S * 1e3
+    fp32_b, fp32_o = _fp32_bound(bytes_moved,
+                                 2 * b * n * d + 2 * b * n + 2 * b * d * t)
     return {"B": b, "n": n, "D": d, "bits": 3, "groups": groups, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "matmul_product_only_ms": matmul_ms, "frac_codes_differ": frac,
-            "bytes_ms": t_b, "ops_ms": t_o}
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": None, "matmul_product_only_ms": matmul_ms,
+            "matmul_device_ms": matmul_device_ms,
+            "frac_codes_differ": frac, "bytes_ms": t_b, "ops_ms": t_o,
+            "fp32_cuda_core_bound_ms": max(fp32_b, fp32_o)}
 
 
 def _time_mibo(s, c, groups, err):
-    """One (S, C) shape of mibo_mc: held against plain, then timed."""
+    """One (S, C) shape of mibo_mc: held against plain, then timed.  ``ms``
+    is the median of calls timed one at a time (the wrapper's host work
+    included), ``device_ms`` the device's time per launch (20 launches in
+    one CUDA graph)."""
     import torch
     from repro_torch.kernels.mibo_mc import kernel, ref
     args = _mibo_inputs(np.random.default_rng(SEED + s + c), s, c, 3,
@@ -1337,10 +1395,12 @@ def _time_mibo(s, c, groups, err):
     err["mibo_mc"] = max(err["mibo_mc"], diff)
     del want
     ms = _time_ms(lambda: kernel.mibo_mc(*args), 10)
+    device_ms = _graph_ms(lambda: kernel.mibo_mc(*args), 20)
     plain_ms = min(plain_ms, _time_ms(lambda: ref.ml_currents(*args), 3, 1))
     t_b, t_o = _fp32_bound(4 * (2 * s * c + 2 * c + s),
                            MIBO_OPS_PER_CELL * s * c)
-    return {"S": s, "C": c, "groups": groups, "ms": ms, "plain_ms": plain_ms,
+    return {"S": s, "C": c, "groups": groups, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": None, "bytes_ms": t_b, "ops_ms": t_o}
 
 
@@ -1352,23 +1412,27 @@ def phase_timing_app(paths, encode_shapes, err):
     rows = [
         _row("hdc_encode", "src/repro/kernels/hdc_encode/kernel.py:56",
              "hdc_encode", paths, enc, err,
-             source="src/repro_torch/csrc/hdc_encode.cu"),
+             source="src/repro_torch/csrc/hdc_encode.cu",
+             keys=("device_ms", "matmul_product_only_ms",
+                   "matmul_device_ms", "fp32_cuda_core_bound_ms")),
         _row("mibo_mc", "src/repro/kernels/mibo_mc/kernel.py:49",
              "fig9_mc", paths, mc, err,
-             source="src/repro_torch/csrc/mibo_mc.cu"),
+             source="src/repro_torch/csrc/mibo_mc.cu", keys=("device_ms",)),
     ]
-    rows[0]["matmul_product_only_ms"] = sum(
-        x["matmul_product_only_ms"] for x in enc) / len(enc)
     for r in rows:
         for x in r["shapes"]:
             dims = " ".join(f"{k}={x[k]}" for k in ("B", "n", "D", "S", "C")
                             if k in x)
-            extra = (f" matmul_product_only_ms="
-                     f"{x['matmul_product_only_ms']:.4f}"
-                     if "matmul_product_only_ms" in x else "")
+            extra = "".join(
+                f" {k}={x[k]:.4f}" for k in (
+                    "device_ms", "matmul_product_only_ms",
+                    "matmul_device_ms", "fp32_cuda_core_bound_ms") if k in x)
+            if "frac_codes_differ" in x:
+                extra += f" frac_codes_differ={x['frac_codes_differ']:.3e}"
             bound = max(x["bytes_ms"], x["ops_ms"])
+            by = "bytes" if x["bytes_ms"] >= x["ops_ms"] else "operations"
             print(f"  {r['name']}: {dims} launches={x['groups']} "
-                  f"ms={x['ms']:.4f} bound_ms={bound:.4f} "
+                  f"ms={x['ms']:.4f} bound_ms={bound:.4f} ({by}) "
                   f"plain_ms={x['plain_ms']:.4f}{extra}")
     return rows
 

@@ -2,10 +2,16 @@
 
 :func:`hdc_encode` replaces the Pallas ``hdc_encode``
 (``src/repro/kernels/hdc_encode/kernel.py``): the random-projection
-product H = X·P in full float32, the row norms ‖x‖ accumulated from the
-same X tiles, and the Z-score bucketize ``code = #{t : H > t·‖x‖}`` in the
-epilogue.  Ragged B, n and D are masked in the kernel, so nothing is
-padded here.
+product H = X·P, float32-accurate (3xTF32 on the tensor cores: each operand
+split into two TF32 parts, three products accumulated in float32), the row
+norms ‖x‖ summed in float32 from the same X tiles, and the Z-score
+bucketize ``code = #{t : H > t·‖x‖}`` in the epilogue.  Ragged B, n and D
+are masked in the kernel, so nothing is padded here.
+
+Its gate beyond the reference tolerance: at most
+:data:`ENCODE_FP32_FRACTION` of the codes may differ from the plain
+float32 version's (:mod:`~repro_torch.kernels.hdc_encode.ref`), which a
+single TF32 product fails.
 
 The wrapper takes CUDA tensors only and checks device, dtype, shape and
 contiguity; it allocates the output with ``torch.empty``, launches on the
@@ -25,6 +31,13 @@ from repro_torch.kernels._launch import LaunchCounts, check, raise_on, stream
 
 #: Most thresholds the kernel takes (bits <= 8).
 MAX_THRESHOLDS = 255
+
+#: Largest fraction of codes that may differ from the plain float32
+#: version's at the path shapes.  On an H100 the 3xTF32 product reads
+#: 1.0e-6 to 5.6e-6 there (the tensor cores' float32 accumulation
+#: truncates; a float32 SGEMM reads 1e-7 to 5e-7), a single TF32 product
+#: 5.0e-4 to 5.2e-4 (PERF.md).
+ENCODE_FP32_FRACTION = 1e-5
 
 #: Wrapper calls that launched their kernel, by kernel name.
 launches = LaunchCounts("hdc_encode")

@@ -6,7 +6,9 @@
 the cells whose current exceeds the node-D threshold.  The device
 constants come from :mod:`repro_torch.core.fefet` and
 :mod:`repro_torch.core.mibo` and are passed to the kernel as arguments.
-Any sample count S is taken: ragged S needs no padding.
+Any sample count S and cell count C is taken: rows are read as 16-byte
+vectors when C % 4 == 0 (and the planes are 16-byte aligned), else cell by
+cell, and nothing is padded.
 
 The wrapper takes CUDA tensors only and checks device, dtype, shape and
 contiguity; it allocates the output with ``torch.empty``, launches on the
@@ -31,6 +33,11 @@ launches = LaunchCounts("mibo_mc")
 reset_launches = launches.reset
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# log I_off and log I_on - log I_off, in double, each rounded once to
+# float32 at the call, as the reference's static Python floats are
+_LOG_OFF = math.log(fefet.I_ON / fefet.ON_OFF_RATIO)
+_LOG_SPAN = math.log(fefet.I_ON) - _LOG_OFF
 
 
 def _lib() -> ctypes.CDLL:
@@ -64,8 +71,7 @@ def mibo_mc(vth1: torch.Tensor, vth2: torch.Tensor, g1: torch.Tensor,
     with torch.cuda.device(dev):
         err = _lib().mibo_mc_launch(
             vth1.data_ptr(), vth2.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-            out.data_ptr(), s, c, math.log(fefet.I_ON),
-            math.log(fefet.I_ON / fefet.ON_OFF_RATIO), fefet.SS_V,
+            out.data_ptr(), s, c, _LOG_OFF, _LOG_SPAN, fefet.SS_V,
             fefet.OVERDRIVE_SLOPE, mibo.I_D_THRESHOLD, stream(dev))
     raise_on(err, "mibo_mc")
     launches.add("mibo_mc")
