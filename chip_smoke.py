@@ -24,8 +24,20 @@ exits non-zero without the final ``ok`` line:
 3. the service at full size: a 256-wide, 3-bit table of capacity 2^20
    holding 1,000,000 rows, 4,096 lookups at k = 10 through the driver
    (half exact, half with 8 of 256 symbols perturbed), 64 of them checked
-   bitwise against the plain top-k; then an L1 table at k = 10 and at
-   k = 300 (the dense tier) and a ternary table with ``matches=16``;
+   bitwise against the plain top-k; the same lookups through a second
+   table holding the same rows behind the IVF index tier (``ivf_k10``:
+   1,024 hyperplane sets, 8 probes, built once after the fill), whose
+   certified slots must equal the flat search's and whose results must
+   equal ``ivf.search``'s; then an L1 table at k = 10 and at k = 300 (the
+   dense tier) and a ternary table with ``matches=16``;
+3b. TCAM routing and the exact index: ``lpm_v4`` builds a 131,072-route
+   IPv4-style table (prefix lengths 8-32 weighted toward /24, a default
+   route) with ``tcam.build_routing_table`` and resolves 4,096 addresses
+   in one ``lookup``, held to ``lpm_oracle`` on a sample, to the
+   ``default_hop`` where nothing matched (the table without its default
+   route) and to the same hops at ``matches=33``; ``ivf_exact`` builds a
+   k-means index of 64 sets over a 65,536-row table on the card and
+   searches it at ``probes=64``, bitwise the flat ``am.search``;
 4. the HDC application and the device model: ``hdc_isolet`` fits the
    ISOLET stand-in on the card and runs the Fig. 11(a) and (b) cells
    (``predict_cam`` on the CUDA backend equal to the ``ref`` backend), the
@@ -57,7 +69,7 @@ Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
 3e-2 and each row at a relative L2 error of 2e-2), at dh = 8, at the
 prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
-head width.  Every path of phases 3 and 4
+head width.  Every path of phases 3, 3b and 4
 runs with the launch counts of every kernel set to 0 just before it and
 read just after, and must launch its kernels.
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
@@ -90,6 +102,25 @@ TF32_OPS_PER_S = 495e12       # tensor cores, dense
 WIDTH, BITS = 256, 3
 CAPACITY, ROWS, CHUNK = 1 << 20, 1_000_000, 65_536
 LOOKUPS, K = 4096, 10
+
+# The IVF tier: S ~ sqrt(N) sets of the 1,000,000-row table, 8 probes, one
+# hyperplane projection (k-means is host numpy at O(N S D) a step); the
+# exact path's k-means index of 64 sets over 65,536 rows
+IVF_SETS, IVF_PROBES = 1024, 8
+IVF_PLAIN_SAMPLE = 64          # ivf_k10 queries held against a plain search
+IVF_EXACT_ROWS, IVF_EXACT_SETS, IVF_EXACT_QUERIES = 65_536, 64, 256
+
+# LPM: 32-bit addresses as 16 two-bit symbols (D = 16 is the kernels'
+# D_MULTIPLE, so no padding), 2^17 routes (a full IPv4 table holds about
+# 10^6: the python build loop and the oracle set the size), prefix lengths
+# weighted toward /24 as in public BGP tables (RouteViews, the CIDR Report)
+LPM_WIDTH, LPM_BITS, LPM_ROUTES, LPM_ADDRS = 16, 2, 1 << 17, 4096
+LPM_MATCHES, LPM_MATCHES_ALL, LPM_ORACLE_SAMPLE = 8, 33, 64
+LPM_LENGTH_WEIGHTS = {8: 0.2, 9: 0.1, 10: 0.2, 11: 0.4, 12: 0.8, 13: 1.5,
+                      14: 2.5, 15: 4.5, 16: 8.5, 17: 4.0, 18: 7.0, 19: 13.0,
+                      20: 21.0, 21: 24.0, 22: 61.0, 23: 55.0, 24: 357.0,
+                      25: 0.3, 26: 0.3, 27: 0.2, 28: 0.2, 29: 0.2, 30: 0.2,
+                      31: 0.1, 32: 0.3}
 
 # HDC: the published dimensions of Fig. 11, (D, bits) per cell
 HDC_FIG11A = ((1024, 1), (1024, 3))
@@ -558,14 +589,29 @@ def _perturb(rng, word, n_sym, levels):
     return out
 
 
-def _drive(svc, path, table, queries, **kw):
+def _ivf_launches(launches, groups):
+    """The launch rule of an indexed table: per group one coarse dense
+    search, and one fine fused search per distinct non-empty probed set
+    (at least one, at most ``IVF_SETS``), each with its pack.
+    :func:`_ivf_k10_checks` narrows the fine count with the probed sets,
+    and :func:`_ivf_group_split` checks each stage's count exactly."""
+    fine = launches["cam_search_topk"]
+    return (launches["cam_search"] == groups
+            and groups <= fine <= groups * IVF_SETS
+            and launches["cam_pack"] == groups + fine
+            and all(n == 0 for name, n in launches.items()
+                    if not name.startswith("cam_")))
+
+
+def _drive(svc, path, table, queries, *, indexed=False, **kw):
     """One path: submit ``queries`` to ``table`` and wait for them all.
 
     The launch counts are set to 0 just before the first submit and read
     just after the last lookup resolved, so they are this path's alone; the
     groups it dispatched are read from the table's bucket counts.  Each
     group is one search, which launches the pack kernel and one search
-    kernel: the fused one, or the dense one for k above 256.
+    kernel: the fused one, or the dense one for k above 256.  An
+    ``indexed`` table's groups follow :func:`_ivf_launches` instead.
     """
     from repro_torch.core import am
     check(svc.drain(timeout=600), f"{path}: driver busy before the path")
@@ -580,12 +626,16 @@ def _drive(svc, path, table, queries, **kw):
     buckets = {b: n - before.get(b, 0) for b, n in sorted(after.items())
                if n > before.get(b, 0)}
     groups = sum(buckets.values())
-    tier = ("cam_search" if kw.get("k", 1) > am.FUSED_K_MAX
-            else "cam_search_topk")
-    want = {name: groups if name in (tier, "cam_pack") else 0
-            for name in launches}
-    check(launches == want, f"{path}: launches {launches}, expected {want} "
-          f"for {groups} groups")
+    if indexed:
+        check(_ivf_launches(launches, groups), f"{path}: launches "
+              f"{launches} break the index tier's rule for {groups} groups")
+    else:
+        tier = ("cam_search" if kw.get("k", 1) > am.FUSED_K_MAX
+                else "cam_search_topk")
+        want = {name: groups if name in (tier, "cam_pack") else 0
+                for name in launches}
+        check(launches == want, f"{path}: launches {launches}, expected "
+              f"{want} for {groups} groups")
     print(f"  {path}: {len(queries)} lookups, {groups} groups "
           f"(buckets {buckets}), launches {launches}, {seconds:.3f} s")
     return futs, {"table": table, **kw, "lookups": len(queries),
@@ -655,7 +705,19 @@ def phase_service():
                                        matches=16)
     svc.stop_driver()
 
+    # the indexed table is filled and driven after every flat path, so the
+    # flat paths run on the same service state as before the index existed
+    ivf_fill = _fill_indexed(svc, stored)
+    svc.start_driver(max_in_flight=2)
+    ivf_futs, paths["ivf_k10"] = _drive(svc, "ivf_k10", "responses_ivf",
+                                        queries, indexed=True, k=K)
+    svc.stop_driver()
+
     resp = [f.result() for f in futs]
+    paths["ivf_k10"].update(ivf_fill)
+    paths["ivf_k10"].update(_ivf_k10_checks(svc, queries, resp, ivf_futs,
+                                            paths, rows, exact, stored))
+    svc.drop_table("responses_ivf")
     for i, (r, e) in enumerate(zip(rows, exact)):
         check(resp[i].best_row == r,
               f"lookup {i}: best row {resp[i].best_row} != stored row {r}")
@@ -709,6 +771,389 @@ def phase_service():
             "queries": queries, "l1_queries": l1_codes[l1_rows[:4]]}
 
 
+def _fill_indexed(svc, stored):
+    """The ``ivf_k10`` table: the 1,000,000 rows of ``responses`` in a
+    2^20-row capacity behind the index tier, appended in CHUNK-row chunks.
+    ``min_rows=ROWS`` makes the lazy build run once, inside the last
+    append, rather than at the second chunk with every later chunk going
+    through ``ivf.append``.  Returns the fill's seconds and the last
+    append's (which holds the build)."""
+    import torch
+    from repro_torch.serve import IndexSpec
+    spec = IndexSpec(sets=IVF_SETS, probes=IVF_PROBES, method="hyperplane",
+                     min_rows=ROWS)
+    svc.create_table("responses_ivf", width=WIDTH, bits=BITS,
+                     distance="hamming", capacity=CAPACITY, policy="lru",
+                     backend="cuda", index=spec)
+    t0 = time.perf_counter()
+    for s in range(0, ROWS, CHUNK):
+        check(not svc.stats("responses_ivf")["index"]["built"],
+              f"ivf_k10: index built before the fill ended (row {s})")
+        t1 = time.perf_counter()
+        svc.append("responses_ivf", stored[s:s + CHUNK].astype(np.int32),
+                   values=list(range(s, min(ROWS, s + CHUNK))))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    st = svc.stats("responses_ivf")["index"]
+    check(st["built"] and st["builds"] == 1,
+          f"ivf_k10: index after the fill {st}")
+    index = svc._tables["responses_ivf"].index
+    sizes = index.set_sizes.cpu().numpy()
+    out = {"fill_s": t2 - t0, "build_s": t2 - t1, "sets": IVF_SETS,
+           "probes": IVF_PROBES, "set_capacity": index.set_capacity,
+           "set_size_min": int(sizes.min()), "set_size_max": int(sizes.max()),
+           "empty_sets": int((sizes == 0).sum())}
+    print(f"  responses_ivf: filled {ROWS} rows in {out['fill_s']:.2f} s, "
+          f"the last append (it holds the build) {out['build_s']:.2f} s; "
+          f"{IVF_SETS} sets of {sizes.min()}-{sizes.max()} rows "
+          f"(slab capacity {index.set_capacity}, {out['empty_sets']} empty)")
+    return out
+
+
+def _ivf_group_split(index, queries, qb):
+    """One group of ``qb`` queries through the index stage by stage, each
+    stage's seconds on the host clock after a device sync: coarse (the
+    dense kernel over the centroids), fine (one fused launch per distinct
+    probed set, with the host's grouping) and merge; held bitwise against
+    ``ivf.search`` on the same group."""
+    import torch
+    from repro_torch.core import am
+    from repro_torch.index import ivf
+    be = am._resolve_backend("cuda")
+    q = torch.from_numpy(np.stack(queries[:qb])).cuda()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    probed, bound = ivf._coarse(index, q, IVF_PROBES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    coarse = read_launches()
+    reset_launches()
+    dist, gid = ivf._fine_candidates(be, q, index, probed, K)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fine = read_launches()
+    reset_launches()
+    dist, gid = ivf._merge(dist, gid, K)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    merge = read_launches()
+    sets = np.unique(probed.cpu().numpy())
+    live = int((index.set_sizes.cpu().numpy()[sets] > 0).sum())
+    for stage, got, want in (
+            ("coarse", coarse, {"cam_search": 1, "cam_pack": 1}),
+            ("fine", fine, {"cam_search_topk": live, "cam_pack": live}),
+            ("merge", merge, {})):
+        want = {name: want.get(name, 0) for name in got}
+        check(got == want, f"ivf_k10 group Q={qb}: {stage} launches {got}, "
+              f"expected {want} ({live} distinct non-empty probed sets)")
+    whole = ivf.search(index, q, k=K, probes=IVF_PROBES, backend="cuda")
+    check(torch.equal(whole.indices, gid) and torch.equal(whole.distances,
+                                                          dist),
+          "ivf_k10: the staged group differs from ivf.search")
+    return {"Q": qb, "coarse_s": t1 - t0, "fine_s": t2 - t1,
+            "merge_s": t3 - t2,
+            "fine_launches": fine["cam_search_topk"],
+            "distinct_probed_sets": int(sets.size)}
+
+
+def _ivf_against_plain(index, queries, probed, g_idx, g_dist, stored):
+    """The indexed service held to a plain version built apart from the
+    port's fine pass.  Every row lies in exactly one set; on a sample of
+    queries the probe ranking equals the plain top-``IVF_PROBES`` over the
+    centroids on the CPU, and the service's indices and distances equal the
+    plain top-k over the probed sets' rows, taken from the host copy
+    ``stored`` by global id and laid out in ascending id (so the plain
+    search's row-position tie-break is the global-id one).  Returns the
+    sample's size."""
+    import torch
+    from repro_torch.core import am
+    row_ids = index.row_ids.cpu().numpy()
+    sizes = index.set_sizes.cpu().numpy()
+    members = [row_ids[s, :sizes[s]] for s in range(index.sets)]
+    check(np.array_equal(np.sort(np.concatenate(members)), np.arange(ROWS)),
+          "ivf_k10: the sets do not partition the table's rows")
+    pick = np.random.default_rng(SEED + 2).choice(LOOKUPS, IVF_PLAIN_SAMPLE,
+                                                  replace=False)
+    q = np.stack([queries[i] for i in pick])
+    cent = am.make_table(index.centroids.cpu(), bits=index.bits,
+                         distance=index.distance, device="cpu")
+    rank = am.search(cent, q, k=IVF_PROBES, backend="ref").indices.numpy()
+    check(np.array_equal(rank, probed[pick]), "ivf_k10: the probe ranking "
+          "differs from the plain search over the centroids")
+    for j, i in enumerate(pick):
+        gids = np.sort(np.concatenate([members[s] for s in rank[j]]))
+        part = am.make_table(stored[gids].astype(np.int32), bits=BITS,
+                             device="cpu")
+        r = am.search(part, q[j], k=K, backend="ref")
+        want_idx = gids[r.indices.numpy()].astype(np.int32)
+        check(np.array_equal(g_idx[i], want_idx)
+              and np.array_equal(g_dist[i], r.distances.numpy()),
+              f"ivf_k10: lookup {i} differs from the plain top-{K} over its "
+              f"{IVF_PROBES} probed sets ({gids.size} rows)")
+    return int(pick.size)
+
+
+def _ivf_k10_checks(svc, queries, flat, futs, paths, rows, exact, stored):
+    """Gates and readings of ``ivf_k10``: on a sample, the service's results
+    equal a plain top-k over the probed sets' rows (:func:`_ivf_against_
+    plain`); all its results equal ``ivf.search``'s on the same queries;
+    the path's fine launches lie between the distinct probed sets and that
+    count once per group (each staged group counts them exactly); every
+    slot the recall proxy certifies equals the flat search's (on uniform
+    random codes the proxy certifies almost nothing, so this gate is nearly
+    empty: the count is printed); a query equal to a stored row finds it
+    first; ``stats()["index"]`` counts the lookups.  Reports recall@10
+    against the flat search, the mean proxy and candidate fraction,
+    lookups/s beside ``responses_k10``'s, and the per-group split."""
+    import torch
+    from repro_torch.index import ivf
+    index = svc._tables["responses_ivf"].index
+    got = [f.result() for f in futs]
+    direct = ivf.search(index, np.stack(queries), k=K, probes=IVF_PROBES,
+                        backend="cuda")
+    d_idx = direct.indices.cpu().numpy()
+    d_dist = direct.distances.cpu().numpy()
+    proxy = direct.recall_proxy.cpu().numpy()
+    frac = direct.candidate_fraction.cpu().numpy()
+    g_idx = np.stack([r.indices for r in got])
+    g_dist = np.stack([r.distances for r in got])
+    check(np.array_equal(g_idx, d_idx) and np.array_equal(g_dist, d_dist),
+          "ivf_k10: service results differ from ivf.search on the same "
+          "queries")
+    probed = direct.probed_sets.cpu().numpy()
+    plain_n = _ivf_against_plain(index, queries, probed, g_idx, g_dist,
+                                 stored)
+    live = np.flatnonzero(index.set_sizes.cpu().numpy() > 0)
+    distinct = int(np.intersect1d(np.unique(probed), live).size)
+    fine = paths["ivf_k10"]["launches"]["cam_search_topk"]
+    groups = sum(paths["ivf_k10"]["buckets"].values())
+    check(distinct <= fine <= min(groups * distinct, LOOKUPS * IVF_PROBES),
+          f"ivf_k10: {fine} fine launches for {distinct} distinct probed "
+          f"sets over {groups} groups")
+    f_idx = np.stack([r.indices for r in flat])
+    f_dist = np.stack([r.distances for r in flat])
+    # the proxy counts the certified slots, and certified distances are
+    # the smallest ones: the first round(proxy * K) slots of each query
+    cert = np.rint(proxy * K).astype(int)
+    slot = np.arange(K)[None, :] < cert[:, None]
+    bad = int((slot & (d_dist != f_dist)).sum())
+    check(bad == 0, f"ivf_k10: {bad} certified slots differ from the flat "
+          f"search")
+    best = g_idx[:, 0]
+    check(bool((best[exact] == rows[exact]).all()), "ivf_k10: a stored "
+          "row's duplicate did not find it first")
+    ist = svc.stats("responses_ivf")["index"]
+    check(ist["lookups"] == LOOKUPS,
+          f"ivf_k10: stats()['index'] counts {ist['lookups']} lookups")
+    recall = float((d_dist == f_dist).mean())
+    seconds = paths["ivf_k10"]["seconds"]
+    flat_s = paths["responses_k10"]["seconds"]
+    # each bucket size twice: the first call of a shape may pay the
+    # allocator's growth, the second is the steady state
+    split = [dict(_ivf_group_split(index, queries, qb), run=run)
+             for qb in sorted(paths["ivf_k10"]["buckets"]) for run in (1, 2)]
+    out = {"plain_sample": plain_n, "distinct_probed_sets": distinct,
+           "recall_at_10": recall,
+           "index_equal_share": float((d_idx == f_idx).mean()),
+           "perturbed_source_found_share": float(
+               (best[~exact] == rows[~exact]).mean()),
+           "certified_slots": int(slot.sum()),
+           "recall_proxy_mean": float(proxy.mean()),
+           "candidate_fraction_mean": float(frac.mean()),
+           "lookups_per_s": LOOKUPS / seconds,
+           "flat_lookups_per_s": LOOKUPS / flat_s,
+           "service_candidate_fraction": ist["candidate_fraction"],
+           "group_split": split}
+    print(f"  ivf_k10: {plain_n} sampled lookups equal the plain top-{K} "
+          f"over their probed sets' rows; {fine} fine launches for "
+          f"{distinct} distinct probed sets over {groups} groups")
+    print(f"  ivf_k10: recall@10 {recall:.4f} against the flat search "
+          f"(indices equal at {out['index_equal_share']:.4f}); every exact "
+          f"query found its row first, a perturbed one its source at "
+          f"{out['perturbed_source_found_share']:.4f}; recall proxy "
+          f"mean {out['recall_proxy_mean']:.6f}, {out['certified_slots']} "
+          f"of {LOOKUPS * K} slots certified, all equal to flat; candidate "
+          f"fraction mean "
+          f"{out['candidate_fraction_mean']:.5f}; {out['lookups_per_s']:.0f} "
+          f"lookups/s against {out['flat_lookups_per_s']:.0f} flat")
+    for g in split:
+        print(f"  ivf_k10 group Q={g['Q']} (run {g['run']}): coarse "
+              f"{g['coarse_s']:.4f} s, "
+              f"fine {g['fine_s']:.4f} s ({g['fine_launches']} fused "
+              f"launches over {g['distinct_probed_sets']} probed sets), "
+              f"merge {g['merge_s']:.4f} s")
+    del direct
+    torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: TCAM routing and the exact index
+# ---------------------------------------------------------------------------
+
+def _lpm_routes(rng):
+    """A default route, then LPM_ROUTES - 1 seeded prefixes whose lengths
+    follow LPM_LENGTH_WEIGHTS; next hops 1, 2, ... in route order."""
+    from repro_torch import tcam
+    lens = np.array(sorted(LPM_LENGTH_WEIGHTS))
+    w = np.array([LPM_LENGTH_WEIGHTS[n] for n in lens])
+    n = LPM_ROUTES - 1
+    plen = rng.choice(lens, n, p=w / w.sum())
+    vals = rng.integers(0, 1 << 32, n, dtype=np.int64)
+    vals = (vals >> (32 - plen)) << (32 - plen)
+    return [tcam.Route(0, 0, 0)] + [
+        tcam.Route(int(v), int(p), i + 1)
+        for i, (v, p) in enumerate(zip(vals.tolist(), plen.tolist()))]
+
+
+def _lpm_v4():
+    """Build the routing table and resolve the addresses three ways: at
+    ``matches=8``, at ``matches=33`` (the most prefixes a 32-bit address
+    can match) and on the table without its default route."""
+    import torch
+    from repro_torch.core import am
+    from repro_torch import tcam
+    rng = np.random.default_rng(SEED + 30)
+    routes = _lpm_routes(rng)
+    inside = rng.integers(1, LPM_ROUTES, LPM_ADDRS // 2)
+    host = rng.integers(0, 1 << 32, LPM_ADDRS // 2, dtype=np.int64)
+    addrs = np.concatenate([
+        [routes[i].value | (int(h) & ((1 << (32 - routes[i].prefix_bits))
+                                      - 1)) for i, h in zip(inside, host)],
+        rng.integers(0, 1 << 32, LPM_ADDRS - LPM_ADDRS // 2,
+                     dtype=np.int64)]).astype(np.int64)
+
+    def path():
+        t0 = time.perf_counter()
+        rt = tcam.build_routing_table(routes, width=LPM_WIDTH, bits=LPM_BITS,
+                                      default_hop=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hops, res = tcam.lookup(rt, addrs, matches=LPM_MATCHES,
+                                backend="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wide, wres = tcam.lookup(rt, addrs, matches=LPM_MATCHES_ALL,
+                                 backend="cuda")
+        check(int(rt.prefix_lens[-1]) == 0 and int(rt.prefix_lens[-2]) > 0,
+              "lpm_v4: the default route is not the last row alone")
+        bare = dataclasses.replace(
+            rt, table=am.AMTable(codes=rt.table.codes[:-1],
+                                 care=rt.table.care[:-1], bits=LPM_BITS),
+            next_hops=rt.next_hops[:-1], prefix_lens=rt.prefix_lens[:-1])
+        bare_hops, bare_res = tcam.lookup(bare, addrs, matches=LPM_MATCHES,
+                                          backend="cuda")
+        torch.cuda.synchronize()
+        return (rt, hops, res, wide, wres, bare_hops, bare_res,
+                t1 - t0, t2 - t1)
+
+    (rt, hops, res, wide, wres, bare_hops, bare_res, build_s,
+     lookup_s), info = _run_path("lpm_v4", path,
+                                 {"cam_search_topk": 3, "cam_pack": 3})
+    hops, wide = hops.cpu().numpy(), wide.cpu().numpy()
+    bare_hops = bare_hops.cpu().numpy()
+    count = res.match_count.cpu().numpy()
+    check(np.array_equal(hops, wide), "lpm_v4: hops change when matches "
+          f"widens from {LPM_MATCHES} to {LPM_MATCHES_ALL}")
+    check(not bool(wres.overflow.any()), f"lpm_v4: an address matched more "
+          f"than {LPM_MATCHES_ALL} rules")
+    check(np.array_equal(wres.match_count.cpu().numpy(), count),
+          "lpm_v4: match counts change with the window")
+    check(bool((count >= 1).all()), "lpm_v4: the default route did not "
+          "match every address")
+    none = bare_res.match_count.cpu().numpy() == 0
+    check(bool((bare_hops[none] == rt.default_hop).all()),
+          "lpm_v4: an address that matched nothing is not sent to "
+          "default_hop")
+    check(np.array_equal(bare_hops[~none], hops[~none]),
+          "lpm_v4: dropping the default route changed a covered hop")
+    check(np.array_equal(none, hops == 0), "lpm_v4: the addresses only the "
+          "default route covers are not the unmatched ones")
+    pick = np.random.default_rng(SEED + 31).choice(LPM_ADDRS,
+                                                   LPM_ORACLE_SAMPLE,
+                                                   replace=False)
+    t0 = time.perf_counter()
+    want = [tcam.lpm_oracle(routes, int(addrs[i]), width=LPM_WIDTH,
+                            bits=LPM_BITS, default_hop=-1) for i in pick]
+    oracle_s = time.perf_counter() - t0
+    check(hops[pick].tolist() == want, "lpm_v4: hops differ from lpm_oracle")
+    out = {"routes": LPM_ROUTES, "rows": rt.table.n_rows,
+           "addresses": LPM_ADDRS, "matches": LPM_MATCHES,
+           "overflow": int(res.overflow.sum()), "build_s": build_s,
+           "lookup_s": lookup_s, "addresses_per_s": LPM_ADDRS / lookup_s,
+           "unmatched_without_default": int(none.sum()),
+           "max_match_count": int(count.max()),
+           "oracle_sample": LPM_ORACLE_SAMPLE, "oracle_s": oracle_s}
+    print(f"  lpm_v4: {LPM_ROUTES} routes -> {out['rows']} rows, build "
+          f"{build_s:.2f} s, one lookup of {LPM_ADDRS} addresses "
+          f"{lookup_s * 1e3:.2f} ms; overflow at matches={LPM_MATCHES}: "
+          f"{out['overflow']}, up to {out['max_match_count']} matches; "
+          f"{out['unmatched_without_default']} addresses matched only the "
+          f"default route; {LPM_ORACLE_SAMPLE} sampled hops equal "
+          f"lpm_oracle ({oracle_s:.1f} s)")
+    info.update(out)
+    return info
+
+
+def _ivf_exact():
+    """A k-means index over a 65,536-row table on the card, searched at
+    probes = sets: bitwise the flat search, every slot certified."""
+    import torch
+    from repro_torch.core import am
+    from repro_torch.index import ivf
+    rng = np.random.default_rng(SEED + 40)
+    codes = rng.integers(0, 1 << BITS, (IVF_EXACT_ROWS, WIDTH),
+                         dtype=np.int32)
+    rows = rng.integers(0, IVF_EXACT_ROWS, IVF_EXACT_QUERIES)
+    queries = np.stack([codes[r] if i % 2 else
+                        _perturb(rng, codes[r], 8, 1 << BITS)
+                        for i, r in enumerate(rows)])
+    table = am.make_table(codes, bits=BITS)
+
+    def path():
+        t0 = time.perf_counter()
+        index = ivf.build(table, sets=IVF_EXACT_SETS, method="kmeans")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = ivf.search(index, queries, k=K, probes=IVF_EXACT_SETS,
+                       backend="cuda")
+        torch.cuda.synchronize()
+        return index, r, t1 - t0, time.perf_counter() - t1
+
+    def expect(out):
+        fine = int((out[0].set_sizes > 0).sum())
+        return {"cam_search_topk": 1 + fine, "cam_search": 1,
+                "cam_pack": 2 + fine}
+
+    (index, r, build_s, search_s), info = _run_path("ivf_exact", path,
+                                                    expect)
+    flat = am.search(table, queries, k=K, backend="cuda")
+    check(torch.equal(r.indices, flat.indices)
+          and torch.equal(r.distances, flat.distances),
+          "ivf_exact: probes = sets differs from the flat search")
+    check(bool((r.recall_proxy == 1.0).all()),
+          "ivf_exact: a slot is not certified at probes = sets")
+    sizes = index.set_sizes.cpu().numpy()
+    out = {"rows": IVF_EXACT_ROWS, "sets": IVF_EXACT_SETS,
+           "queries": IVF_EXACT_QUERIES, "build_s": build_s,
+           "search_s": search_s, "set_capacity": index.set_capacity,
+           "set_size_min": int(sizes.min()), "set_size_max": int(sizes.max())}
+    print(f"  ivf_exact: k-means build {build_s:.2f} s ({IVF_EXACT_SETS} "
+          f"sets of {sizes.min()}-{sizes.max()} rows), search at probes = "
+          f"sets {search_s * 1e3:.1f} ms; indices and distances bitwise the "
+          f"flat search, recall proxy 1.0 everywhere")
+    info.update(out)
+    return info
+
+
+def phase_tcam_ivf():
+    import torch
+    paths = {"lpm_v4": _lpm_v4(), "ivf_exact": _ivf_exact()}
+    torch.cuda.empty_cache()
+    return paths
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the HDC application and the device model
 # ---------------------------------------------------------------------------
@@ -716,7 +1161,8 @@ def phase_service():
 def _run_path(path, fn, expect):
     """Run one path with every launch count zeroed just before and read
     just after.  ``expect`` maps each kernel the path must launch to its
-    exact launch count; every other kernel must not launch."""
+    exact launch count (or is a function of the path's output that returns
+    that map); every other kernel must not launch."""
     reset_launches()
     t0 = time.perf_counter()
     out = fn()
@@ -724,6 +1170,8 @@ def _run_path(path, fn, expect):
     torch.cuda.synchronize()         # the path's work is done when timed
     seconds = time.perf_counter() - t0
     launches = read_launches()
+    if callable(expect):
+        expect = expect(out)
     want = {name: expect.get(name, 0) for name in launches}
     check(launches == want, f"{path}: launches {launches}, expected {want}")
     print(f"  {path}: launches {launches}, {seconds:.3f} s")
@@ -1499,11 +1947,13 @@ def main() -> int:
         err = phase_kernels()
         print("phase 3: the service at full size")
         run = phase_service()
+        print("phase 3b: TCAM routing and the exact index")
+        tcam_paths = phase_tcam_ivf()
         print("phase 4: the HDC application and the device model")
         app_paths, encode_shapes = phase_app()
         print("phase 4b: the dense LM at full width")
         lm_paths = phase_lm()
-        paths = {**run["paths"], **app_paths, **lm_paths}
+        paths = {**run["paths"], **tcam_paths, **app_paths, **lm_paths}
         print("phase 5: timing")
         rows, costs = phase_timing({**run, "paths": paths}, err)
         rows += phase_timing_app(paths, encode_shapes, err)

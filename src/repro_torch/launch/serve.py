@@ -15,9 +15,11 @@ event-driven (``fut.result(timeout=...)``).
   python -m repro_torch.launch.serve --arch yi-6b --full      # on the GPU
   python -m repro_torch.launch.serve --device cpu             # smoke config
 
-``--am-sharded``, ``--am-index N>0``, ``--am-snapshot-dir`` and
-``--am-restore`` parse as in the reference and raise
-:class:`NotImplementedError` until the port slices that carry them land.
+``--am-index SETS`` / ``--am-probes P`` route the cache's lookups through
+the set-associative IVF tier (:mod:`repro_torch.index`), as in the
+reference.  ``--am-sharded``, ``--am-snapshot-dir`` and ``--am-restore``
+parse as in the reference and raise :class:`NotImplementedError` until the
+port slices that carry them land.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from repro_torch.configs.registry import ALIASES, get_config
 from repro_torch.core import hdc
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.serve import AMService
+from repro_torch.serve import AMService, IndexSpec
 from repro_torch.serve.am_service import _not_ported
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import ContinuousBatcher, Request
@@ -64,8 +66,7 @@ def parse_args(argv=None):
                          "sharded AM cache")
     ap.add_argument("--am-index", type=int, default=0, metavar="SETS",
                     help="route cache lookups through the set-associative "
-                         "IVF tier with this many sets (0 = flat scan; "
-                         "sets > 0 not ported yet)")
+                         "IVF tier with this many sets (0 = flat scan)")
     ap.add_argument("--am-probes", type=int, default=1, metavar="P",
                     help="sets probed per indexed lookup (only with "
                          "--am-index)")
@@ -85,15 +86,14 @@ def build_cache_service(args, *, start_driver=True):
     Returns ``None`` when ``--am-cache 0`` disabled the cache.  Otherwise a
     deadline-batched local :class:`AMService` on ``args.device`` holding one
     ``"responses"`` table (``pallas`` backend, which the port runs on its
-    CUDA kernels; LRU at ``--am-cache`` rows), flat scan.
-    ``start_driver=False`` skips the background driver so tests can step
-    the service deterministically.  The sharded, indexed and durable
-    variants raise :class:`NotImplementedError`.
+    CUDA kernels; LRU at ``--am-cache`` rows): a flat scan, or with
+    ``--am-index SETS`` an :class:`IndexSpec` of that many sets probed
+    ``--am-probes`` at a time.  ``start_driver=False`` skips the background
+    driver so tests can step the service deterministically.  The sharded and
+    durable variants raise :class:`NotImplementedError`.
     """
     if args.am_sharded:
         raise _not_ported("--am-sharded", 9, "multi-bank sharding")
-    if args.am_index:
-        raise _not_ported("--am-index", 8, "the IVF index")
     if args.am_snapshot_dir or args.am_restore:
         raise _not_ported("--am-snapshot-dir/--am-restore", 10,
                           "durability")
@@ -103,8 +103,11 @@ def build_cache_service(args, *, start_driver=True):
     # the background driver owns the deadline
     svc = AMService(max_batch=max(64, args.requests), flush_after=0.005,
                     time_fn=time.monotonic, device=args.device)
+    spec = (IndexSpec(sets=args.am_index, probes=args.am_probes)
+            if args.am_index else None)
     svc.create_table("responses", width=CACHE_DIM, bits=CACHE_BITS,
-                     capacity=args.am_cache, policy="lru", backend="pallas")
+                     capacity=args.am_cache, policy="lru", backend="pallas",
+                     index=spec)
     if start_driver:
         svc.start_driver()
     return svc

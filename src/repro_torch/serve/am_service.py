@@ -34,14 +34,28 @@ Design, as in the reference:
   runs on the calling threads' current streams, which are the default
   stream unless a caller changes it, so an append enqueued after a launch
   never races the launched search.
+* **Sub-linear tables via the index tier.**  ``create_table(...,
+  index=IndexSpec(sets=32, probes=4))`` gives a table a set-associative
+  :class:`repro_torch.index.ivf.IVFIndex`: built lazily once the table
+  holds ``index.build_threshold`` live rows, extended incrementally on
+  appends, rebuilt after compaction (eviction renumbers rows).  Dispatches
+  route through :func:`repro_torch.index.ivf.search` transparently — same
+  micro-batching, same padding buckets — and ``stats()["index"]`` reports
+  builds, indexed lookups and candidate fractions.  ``probes == sets`` is
+  bitwise the flat search; fewer probes trade certified recall for
+  O(S + probes * N/S) work per lookup.  Each indexed group launches the
+  coarse dense search once and the fine search once per distinct probed
+  set.  Indexed tables refuse ``matches=`` (the coarse pass prunes rows
+  multi-match must see) and ``ternary`` (a wildcard row belongs to no
+  single set).
 * **Admission control**, **cross-request dedup**, **ternary tables** and
   **multi-match lookups**, **LRU/TTL/reject eviction** and the logical or
   wall **clock** behave exactly as in the reference (see its module
   docstring).
 
-Not yet ported: ``mesh=`` (multi-bank sharding, slice 9), ``index=`` (the
-IVF tier, slice 8) and ``snapshot``/``restore`` (durability, slice 10)
-raise :class:`NotImplementedError`.
+Not yet ported: ``mesh=`` (multi-bank sharding, slice 9) and
+``snapshot``/``restore`` (durability, slice 10) raise
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -58,6 +72,8 @@ import torch
 
 from repro_torch.core import am
 from repro_torch.device import resolve_device
+from repro_torch.index import ivf
+from repro_torch.index.ivf import IndexSpec
 
 #: Eviction policies a table may be created with.
 POLICIES = ("lru", "ttl", "reject")
@@ -232,6 +248,13 @@ class _TableState:
     blocked: int = 0                   # submits that had to wait
     # dispatched groups by power-of-two bucket size
     buckets: dict = dataclasses.field(default_factory=dict)
+    # -- set-associative index tier (repro_torch.index) ----------------------
+    index_spec: IndexSpec | None = None
+    index: "ivf.IVFIndex | None" = None   # built lazily per index_spec
+    index_builds: int = 0              # full (re)builds (lazy + compaction)
+    index_lookups: int = 0             # lookups served through the index
+    index_groups: int = 0              # dispatched groups served through it
+    index_frac_sum: float = 0.0        # sum of per-group candidate fractions
 
 
 @dataclasses.dataclass
@@ -247,8 +270,10 @@ class _InFlightGroup:
     futs: list
     slot_of: list
     host: tuple                    # (idx, dist, exact, matched, count,
-    #                                 overflow); the last two are None
-    #                                 unless the group is multi-match
+    #                                 overflow, frac); count and overflow
+    #                                 are None unless the group is
+    #                                 multi-match, frac (the mean candidate
+    #                                 fraction) unless it is indexed
     event: Any                     # torch.cuda.Event, or None on the CPU
     new_meta: torch.Tensor         # post-touch meta, written back if fresh
     version: int                   # table.version at launch
@@ -379,7 +404,7 @@ class AMService:
                      burst: float | None = None,
                      max_queue: int | None = None,
                      admission: str = "reject",
-                     index=None,
+                     index: IndexSpec | None = None,
                      ternary: bool = False) -> None:
         """Allocate an empty capacity-bounded table under ``name``.
 
@@ -388,10 +413,16 @@ class AMService:
         ``max(1, qps_budget)``), ``max_queue`` caps this table's queued
         lookups, and ``admission`` picks the over-budget behaviour.
         ``ternary`` allocates a care-mask plane beside the code slab (a
-        masked backend required).  ``index`` is not ported yet (slice 8).
+        masked backend required).
+
+        ``index`` (an :class:`repro_torch.index.IndexSpec`) turns on the
+        set-associative index tier for this table: once the table holds
+        ``index.build_threshold`` live rows, dispatches route through
+        :func:`repro_torch.index.ivf.search` with the spec's ``probes``.
+        Appends extend the index incrementally; evictions/deletes rebuild
+        it (compaction renumbers rows).  ``stats()`` grows an ``"index"``
+        block.  Mutually exclusive with ``ternary``.
         """
-        if index is not None:
-            raise _not_ported("create_table(index=...)", 8, "the IVF index")
         if name in self._tables:
             raise ValueError(f"table {name!r} already exists")
         if capacity < 1:
@@ -407,11 +438,22 @@ class AMService:
             raise ValueError(f"qps_budget must be > 0, got {qps_budget}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if index is not None:
+            index.validate()
+            if index.sets > capacity:
+                raise ValueError(
+                    f"index sets ({index.sets}) exceeds table capacity "
+                    f"({capacity}); every set needs at least one row slot")
         am.get_backend(backend)          # fail fast on unknown backends
-        if ternary and "masked" not in am.backend_capabilities(backend):
-            raise ValueError(
-                f"backend {backend!r} lacks the 'masked' capability "
-                "tier required for ternary tables")
+        if ternary:
+            if index is not None:
+                raise ValueError(
+                    "ternary tables cannot use the index tier: the "
+                    "set-associative coarse pass has no wildcard semantics")
+            if "masked" not in am.backend_capabilities(backend):
+                raise ValueError(
+                    f"backend {backend!r} lacks the 'masked' capability "
+                    "tier required for ternary tables")
         dev = self.device
         table = am.make_table(
             torch.zeros((capacity, width), dtype=torch.int32, device=dev),
@@ -429,7 +471,8 @@ class AMService:
                 name=name, table=table, n=0, capacity=capacity, policy=policy,
                 ttl=ttl, backend=backend, values=[],
                 qps_budget=qps_budget, burst=burst, max_queue=max_queue,
-                admission=admission, tokens=burst, tokens_at=self._now())
+                admission=admission, tokens=burst, tokens_at=self._now(),
+                index_spec=index)
 
     def drop_table(self, name: str) -> None:
         """Remove a table; queued and in-flight lookups resolve first."""
@@ -496,7 +539,8 @@ class AMService:
             self._make_room(t, m, now)
             # In place: the slab belongs to this service, and a search
             # launched earlier is ordered before this write on the stream.
-            rows = slice(t.n, t.n + m)
+            start = t.n
+            rows = slice(start, start + m)
             t.table.codes[rows] = _to_device(codes, self.device)
             t.table.meta[rows] = now
             if t.table.care is not None:
@@ -506,6 +550,12 @@ class AMService:
             t.n += m
             t.appends += m
             t.version += 1
+            if t.index is not None:
+                # incremental: new rows land at their sets' slab ends with
+                # the global ids the slab write just gave them
+                t.index = ivf.append(t.index, codes, start_row=start)
+            elif t.index_spec is not None:
+                self._rebuild_index(t)       # lazy build once big enough
 
     def delete(self, name: str, rows) -> int:
         """Drop live rows by index array or boolean mask; returns the count.
@@ -594,6 +644,27 @@ class AMService:
         t.values = [t.values[i] for i in keep]
         t.n = n
         t.version += 1
+        if t.index_spec is not None:
+            # compaction renumbered the surviving rows: the index's global
+            # ids are stale, so rebuild (or drop below the build threshold)
+            self._rebuild_index(t)
+
+    def _rebuild_index(self, t: _TableState) -> None:
+        """Lock held: (re)build the table's IVF index per its spec.
+
+        Below the spec's ``build_threshold`` the index is dropped instead —
+        dispatches fall back to the exact flat search until the table grows
+        back (training centroids on a handful of rows is pure noise).
+        """
+        spec = t.index_spec
+        if t.n < spec.build_threshold:
+            t.index = None
+            return
+        live = am.AMTable(codes=t.table.codes[:t.n], bits=t.table.bits,
+                          distance=t.table.distance)
+        t.index = ivf.build(live, sets=spec.sets, method=spec.method,
+                            seed=spec.seed, iters=spec.iters)
+        t.index_builds += 1
 
     # -- admission -----------------------------------------------------------
 
@@ -651,6 +722,10 @@ class AMService:
                 if query.shape != (t.table.width,):
                     raise ValueError(
                         f"query shape {query.shape} != ({t.table.width},)")
+                if matches is not None and t.index_spec is not None:
+                    raise ValueError(
+                        f"table {name!r} uses the index tier; multi-match "
+                        "needs the full row scan (matches= is unavailable)")
                 if (t.table.care is not None and backend is not None
                         and "masked" not in am.backend_capabilities(backend)):
                     raise ValueError(
@@ -883,17 +958,26 @@ class AMService:
             tv = np.zeros((qb,), np.float32)
             tv[:q] = [fut.request.threshold for fut in uniq]
             thr = _to_device(tv, self.device)
-        tab = t.table
+        tab, index = t.table, t.index
+        probes = t.index_spec.probes if index is not None else 0
         self._signatures.add((qb, k, backend, has_thr, matches,
                               tuple(tab.codes.shape), tab.bits, tab.distance,
-                              tab.care is not None))
+                              tab.care is not None, probes,
+                              None if index is None
+                              else tuple(index.slabs.shape)))
         # am.search counts each dense-tier fallback of a fused backend; the
         # lock serialises this service's dispatches, so the delta is this
-        # group's unless another thread searches at the same moment
+        # group's unless another thread searches at the same moment.  The
+        # index tier does not go through am.search: its group counts by the
+        # reference's rule, k above FUSED_K_MAX on a fused backend.
         before = am.fused_fallbacks()
         out = self._dispatch(tab, _to_device(queries, self.device), t.n, q,
-                             thr, now, k=k, backend=backend, matches=matches)
+                             thr, now, k=k, backend=backend, matches=matches,
+                             index=index, probes=probes)
         self.fused_fallbacks += am.fused_fallbacks() - before
+        if (index is not None and min(k, tab.n_rows) > am.FUSED_K_MAX
+                and am._resolve_backend(backend).fused is not None):
+            self.fused_fallbacks += 1
         *arrays, new_meta = out
         host = tuple(_to_host(a) for a in arrays)
         event = None
@@ -937,12 +1021,16 @@ class AMService:
         """
         if g.event is not None:
             g.event.synchronize()
-        idx, dist, exact, matched, count, overflow = (
+        idx, dist, exact, matched, count, overflow, frac = (
             None if a is None else a.numpy() for a in g.host)
         with self._cv:
             t = g.table
             if self._tables.get(t.name) is t and t.version == g.version:
                 t.table = dataclasses.replace(t.table, meta=g.new_meta)
+            if frac is not None:
+                t.index_lookups += len(g.futs)
+                t.index_groups += 1
+                t.index_frac_sum += float(frac)
             self.readbacks += 1
             done_at = self._now()
             for fut, slot in zip(g.futs, g.slot_of):
@@ -997,19 +1085,33 @@ class AMService:
     @staticmethod
     def _dispatch(table: am.AMTable, queries, n_valid: int, q_valid: int,
                   thresholds, now: float, *, k: int, backend: str,
-                  matches: int | None):
+                  matches: int | None, index=None, probes: int = 0):
         """One search over a padded bucket, plus the LRU touch of its hits.
 
-        Returns (idx, dist, exact, matched, count, overflow, new_meta);
-        ``count`` and ``overflow`` are None unless ``matches`` is set.
+        With an ``index`` the search is :func:`ivf.search` at ``probes``.
+        Returns (idx, dist, exact, matched, count, overflow, frac,
+        new_meta); ``count`` and ``overflow`` are None unless ``matches``
+        is set, ``frac`` (the mean candidate fraction of the real queries)
+        unless ``index`` is.
         """
         thr = None if thresholds is None else thresholds[:, None]
-        count = overflow = None
+        count = overflow = frac = None
         if matches is not None:
             res = am.search(table, queries, matches=matches, threshold=thr,
                             backend=backend, valid_rows=n_valid)
             count, overflow = res.match_count, res.overflow
             top = res.priority_index
+        elif index is not None:
+            # coarse-rank the centroids, fine-search only the probed sets'
+            # slabs; the index holds exactly the live rows
+            r = ivf.search(index, queries, k=k, probes=probes, threshold=thr,
+                           backend=backend)
+            res = r.result
+            live_q = torch.arange(queries.shape[0], device=queries.device) \
+                < q_valid
+            frac = (torch.where(live_q, r.candidate_fraction, 0.0).sum()
+                    / max(q_valid, 1)).to(torch.float32)
+            top = res.best_row
         else:
             res = am.search(table, queries, k=k, threshold=thr,
                             backend=backend, valid_rows=n_valid)
@@ -1021,8 +1123,17 @@ class AMService:
         hit_rows = torch.where(q_live & res.exact[:, 0], top, table.n_rows)
         meta = am.touch(table, hit_rows, now).meta
         idx = torch.where(torch.isfinite(res.distances), res.indices, -1)
-        return (idx, res.distances, res.exact, res.matched, count, overflow,
-                meta)
+        dist, exact, matched = res.distances, res.exact, res.matched
+        pad = (k if matches is None else matches) - idx.shape[1]
+        if pad > 0:
+            # an indexed search clamps k to its total slab capacity, which
+            # can sit below a partly filled table's capacity; pad back out
+            # so the response width holds
+            idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+            dist = torch.nn.functional.pad(dist, (0, pad), value=torch.inf)
+            exact = torch.nn.functional.pad(exact, (0, pad))
+            matched = torch.nn.functional.pad(matched, (0, pad))
+        return idx, dist, exact, matched, count, overflow, frac, meta
 
     # -- stats ---------------------------------------------------------------
 
@@ -1047,6 +1158,15 @@ class AMService:
                     "rejected": t.rejected, "shed": t.shed,
                     "blocked": t.blocked,
                     "buckets": dict(t.buckets),
+                    "index": None if t.index_spec is None else {
+                        "sets": t.index_spec.sets,
+                        "probes": t.index_spec.probes,
+                        "built": t.index is not None,
+                        "builds": t.index_builds,
+                        "lookups": t.index_lookups,
+                        "candidate_fraction":
+                            t.index_frac_sum / max(1, t.index_groups),
+                    },
                 }
             waits = np.asarray(self._wait_samples, np.float64)
             p50, p99 = (np.percentile(waits, [50, 99]) if waits.size
@@ -1070,6 +1190,20 @@ class AMService:
                     "shed": sum(t.shed for t in self._tables.values()),
                     "blocked": sum(t.blocked for t in
                                    self._tables.values()),
+                },
+                "index": {
+                    "tables": sum(1 for t in self._tables.values()
+                                  if t.index_spec is not None),
+                    "built": sum(1 for t in self._tables.values()
+                                 if t.index is not None),
+                    "builds": sum(t.index_builds
+                                  for t in self._tables.values()),
+                    "lookups": sum(t.index_lookups
+                                   for t in self._tables.values()),
+                    "candidate_fraction":
+                        sum(t.index_frac_sum for t in self._tables.values())
+                        / max(1, sum(t.index_groups
+                                     for t in self._tables.values())),
                 },
                 "queue_wait_p50": float(p50),
                 "queue_wait_p99": float(p99),

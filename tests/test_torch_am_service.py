@@ -272,8 +272,6 @@ def test_unported_features_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="slice 9"):
         AMService(mesh=object(), device="cpu")
     svc = _port()
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        svc.create_table("t", width=4, index=object())
     with pytest.raises(NotImplementedError, match="slice 10"):
         svc.snapshot("/nonexistent")
     with pytest.raises(NotImplementedError, match="slice 10"):

@@ -24,8 +24,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tcam
 from repro_torch.configs.registry import get_config
 from repro_torch.core import am, mibo
+from repro_torch.index import ivf
 from repro_torch.core import quantize as q
 from repro_torch.kernels.cam_search import kernel, ops, ref
 from repro_torch.kernels.flash_attention import kernel as fl_kernel
@@ -243,6 +245,65 @@ def test_lm_flash_forward_on_the_card(dev):
     torch.testing.assert_close(got.float(), want.float(), atol=0.25,
                                rtol=0.05)
     assert torch.equal(got.float().argmax(-1), want.float().argmax(-1))
+
+
+@pytest.mark.parametrize("k", [10, 300])          # 300: the dense fallback
+@pytest.mark.parametrize("distance", ["hamming", "l1"])
+def test_ivf_on_the_card_matches_the_cpu(dev, k, distance):
+    """The grouped-by-set fine pass on the card: bitwise the CPU's plain
+    path, index planes included, with one pack and one search launch per
+    distinct non-empty probed set plus the coarse pass's pair."""
+    rng = np.random.default_rng(2)
+    codes = rng.integers(0, 8, (5000, 48)).astype(np.int32)
+    queries = np.concatenate([codes[rng.integers(0, 5000, 20)],
+                              rng.integers(0, 8, (13, 48))]).astype(np.int32)
+    gpu = am.make_table(codes, bits=3, distance=distance)
+    cpu = am.make_table(codes, bits=3, distance=distance, device="cpu")
+    ig = ivf.build(gpu, sets=24, method="hyperplane", seed=1)
+    ic = ivf.build(cpu, sets=24, method="hyperplane", seed=1)
+    for f in ("centroids", "slabs", "row_ids", "set_sizes", "set_radius"):
+        assert torch.equal(getattr(ig, f).cpu(), getattr(ic, f)), f
+    ig = ivf.append(ig, codes[:700], start_row=5000)
+    ic = ivf.append(ic, codes[:700], start_row=5000)
+    assert torch.equal(ig.slabs.cpu(), ic.slabs)
+    for probes in (1, 5, 24):
+        kernel.reset_launches()
+        a = ivf.search(ig, queries, k=k, probes=probes, backend="cuda")
+        b = ivf.search(ic, queries, k=k, probes=probes, backend="cuda")
+        for f in ("indices", "distances", "recall_proxy", "probed_sets",
+                  "candidate_fraction"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+        sizes = ig.set_sizes.cpu().numpy()
+        sets = np.unique(a.probed_sets.cpu().numpy())
+        fine = int((sizes[sets] > 0).sum())
+        tier = "cam_search_topk" if k <= am.FUSED_K_MAX else "cam_search"
+        want = {"cam_search": 1 + (fine if tier == "cam_search" else 0),
+                "cam_search_topk": fine if tier == "cam_search_topk" else 0,
+                "cam_pack": 1 + fine}
+        assert kernel.launches == want, (kernel.launches, want)
+
+
+def test_lpm_lookup_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(3)
+    routes = [tcam.Route(0, 0, 0)] + [
+        tcam.Route(int(rng.integers(0, 1 << 32)), int(rng.integers(8, 33)),
+                   i + 1) for i in range(3000)]
+    gpu = tcam.build_routing_table(routes, width=16, bits=2)
+    cpu = tcam.build_routing_table(routes, width=16, bits=2, device="cpu")
+    addrs = np.concatenate([[r.value for r in routes[1:200]],
+                            rng.integers(0, 1 << 32, 300)])
+    for matches in (8, 33):
+        kernel.reset_launches()
+        ha, ra = tcam.lookup(gpu, addrs, matches=matches, backend="cuda")
+        hb, rb = tcam.lookup(cpu, addrs, matches=matches, backend="cuda")
+        assert torch.equal(ha.cpu(), hb)
+        for f in ("indices", "distances", "match_count", "overflow"):
+            assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), f
+        assert kernel.launches == {"cam_search": 0, "cam_search_topk": 1,
+                                   "cam_pack": 1}
+    for a in addrs[:20].tolist():
+        assert int(ha[addrs.tolist().index(a)]) == tcam.lpm_oracle(
+            routes, a, width=16, bits=2)
 
 
 def test_serving_driver_on_the_card(dev):

@@ -21,7 +21,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import get_config
+from repro_torch import tcam
 from repro_torch.core import am, hdc
+from repro_torch.index import ivf
 from repro_torch.kernels import _build
 from repro_torch.kernels.cam_search import kernel, ops
 from repro_torch.kernels.hdc_encode import kernel as enc_kernel
@@ -59,6 +61,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.models.attention, repro_torch.models.transformer\n"
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.tcam, repro_torch.tcam.masks\n"
+        "import repro_torch.tcam.routing, repro_torch.index\n"
+        "import repro_torch.index.ivf, repro_torch.index.partition\n"
         "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -122,6 +127,12 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
                      ternary=True)
     svc.append("t", codes)
     assert svc.lookup("t", codes[5], k=2).best_row == 5
+    index = ivf.build(table, sets=4, method="hyperplane")
+    ivf.search(index, codes[:4], k=3, probes=2, backend="cuda")
+    ivf.search(index, codes[:4], k=300, probes=4, backend="cuda")
+    rt = tcam.build_routing_table([(0, 0, 1), (0xAB, 8, 2)], width=8,
+                                  bits=2, device="cpu")
+    tcam.lookup(rt, [0xABCD, 7], matches=2, backend="cuda")
     enc_ops.encode_quantize(torch.ones((3, 5)), torch.ones((5, 7)), 2)
     mc_ops.monte_carlo_ml_currents(torch.zeros(6, dtype=torch.int32),
                                    torch.ones(6, dtype=torch.int32),
@@ -159,9 +170,9 @@ class _FellBack(Exception):
 
 def test_cuda_tensors_never_fall_back_to_plain(monkeypatch):
     """A CUDA tensor (a fake one: there is no card here) reaching
-    ``hdc_encode.ops``, ``mibo_mc.ops`` or ``flash_attention.ops`` goes to
-    the kernel, which cannot launch, and the call raises; the plain version
-    is never run."""
+    ``hdc_encode.ops``, ``mibo_mc.ops``, ``flash_attention.ops`` or the
+    IVF coarse pass goes to the kernel, which cannot launch, and the call
+    raises; the plain version is never run."""
     def fell_back(*args, **kwargs):
         raise _FellBack("plain version run for a CUDA tensor")
 
@@ -171,6 +182,7 @@ def test_cuda_tensors_never_fall_back_to_plain(monkeypatch):
     monkeypatch.setattr(enc_ref, "encode_quantize", fell_back)
     monkeypatch.setattr(mc_ref, "ml_currents", fell_back)
     monkeypatch.setattr(fl_ref, "attention", fell_back)
+    monkeypatch.setattr(am, "_ref_backend", fell_back)
     monkeypatch.setattr(_build, "load", no_card)
     enc_kernel.reset_launches()
     mc_kernel.reset_launches()
@@ -182,10 +194,18 @@ def test_cuda_tensors_never_fall_back_to_plain(monkeypatch):
         code = torch.zeros(6, dtype=torch.int32, device="cuda")
         q = torch.empty((1, 8, 2, 8), device="cuda")
         kv = torch.empty((1, 8, 1, 8), device="cuda")
+        words = torch.zeros((3, 16), dtype=torch.int32, device="cuda")
+        index = ivf.IVFIndex(
+            centroids=words, slabs=torch.zeros((3, 2, 16), dtype=torch.int32,
+                                               device="cuda"),
+            row_ids=torch.zeros((3, 2), dtype=torch.int32, device="cuda"),
+            set_sizes=torch.ones(3, dtype=torch.int32, device="cuda"),
+            set_radius=torch.zeros(3, device="cuda"))
         for call in (lambda: enc_ops.encode_quantize(x, proj, 2),
                      lambda: mc_ops.ml_currents_with_noise(code, code, noise,
                                                            noise),
-                     lambda: fl_ops.flash_attention_bshd(q, kv, kv)):
+                     lambda: fl_ops.flash_attention_bshd(q, kv, kv),
+                     lambda: ivf._coarse(index, words, 2)):
             with pytest.raises(Exception) as err:
                 call()
             assert not isinstance(err.value, _FellBack), err.value

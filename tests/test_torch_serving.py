@@ -237,7 +237,8 @@ def test_driver_resolves_submit_without_flush():
         svc.close()
 
 
-@pytest.mark.parametrize("flags", [["--am-sharded"], ["--am-index", "4"],
+@pytest.mark.parametrize("flags", [["--am-sharded"],
+                                   ["--am-sharded", "--am-merge", "tree"],
                                    ["--am-snapshot-dir", "snap"],
                                    ["--am-restore"]])
 def test_unported_flags_raise(flags):
