@@ -38,6 +38,18 @@ exits non-zero without the final ``ok`` line:
    route) and to the same hops at ``matches=33``; ``ivf_exact`` builds a
    k-means index of 64 sets over a 65,536-row table on the card and
    searches it at ``probes=64``, bitwise the flat ``am.search``;
+3c. multi-bank sharding and the paper's Fig. 12: ``sharded_k10`` fills a
+   second service, sharded over a local mesh of 8 banks (slices of the
+   card, ``merge="auto"``), with the same 1,000,000 rows and drives the
+   same 4,096 lookups at k = 10, each bitwise its ``responses_k10``
+   result (8 ``cam_pack`` + 8 ``cam_search_topk`` launches a group); one
+   1,024-query group then goes through ``am.search_sharded`` under each
+   of ``allgather``, ``tree`` and ``ring``, bitwise ``am.search``, timed
+   with the merge alone beside it; ``ivf_exact_sharded`` (in phase 3b)
+   searches the exact index's sets banked over 8 banks, bitwise the flat
+   search; ``fig12`` runs ``torch_benchmarks.fig12_speedup.run()`` at its
+   full shapes (its CSV lines printed) and holds the measured search of
+   its first shape bitwise to the plain top-1;
 4. the HDC application and the device model: ``hdc_isolet`` fits the
    ISOLET stand-in on the card and runs the Fig. 11(a) and (b) cells
    (``predict_cam`` on the CUDA backend equal to the ``ref`` backend), the
@@ -69,7 +81,7 @@ Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
 3e-2 and each row at a relative L2 error of 2e-2), at dh = 8, at the
 prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
-head width.  Every path of phases 3, 3b and 4
+head width.  Every path of phases 3, 3b, 3c and 4
 runs with the launch counts of every kernel set to 0 just before it and
 read just after, and must launch its kernels.
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
@@ -109,6 +121,11 @@ LOOKUPS, K = 4096, 10
 IVF_SETS, IVF_PROBES = 1024, 8
 IVF_PLAIN_SAMPLE = 64          # ivf_k10 queries held against a plain search
 IVF_EXACT_ROWS, IVF_EXACT_SETS, IVF_EXACT_QUERIES = 65_536, 64, 256
+
+# multi-bank sharding: the banks of the local mesh (slices of the one card)
+# and the query group each merge is timed at
+SHARD_BANKS, SHARD_GROUP = 8, 1024
+MERGES = ("allgather", "tree", "ring")
 
 # LPM: 32-bit addresses as 16 two-bit symbols (D = 16 is the kernels'
 # D_MULTIPLE, so no padding), 2^17 routes (a full IPv4 table holds about
@@ -603,15 +620,16 @@ def _ivf_launches(launches, groups):
                     if not name.startswith("cam_")))
 
 
-def _drive(svc, path, table, queries, *, indexed=False, **kw):
+def _drive(svc, path, table, queries, *, indexed=False, banks=1, **kw):
     """One path: submit ``queries`` to ``table`` and wait for them all.
 
     The launch counts are set to 0 just before the first submit and read
     just after the last lookup resolved, so they are this path's alone; the
     groups it dispatched are read from the table's bucket counts.  Each
     group is one search, which launches the pack kernel and one search
-    kernel: the fused one, or the dense one for k above 256.  An
-    ``indexed`` table's groups follow :func:`_ivf_launches` instead.
+    kernel once per bank (``banks`` of a sharded service): the fused one,
+    or the dense one for k above 256.  An ``indexed`` table's groups follow
+    :func:`_ivf_launches` instead.
     """
     from repro_torch.core import am
     check(svc.drain(timeout=600), f"{path}: driver busy before the path")
@@ -632,7 +650,7 @@ def _drive(svc, path, table, queries, *, indexed=False, **kw):
     else:
         tier = ("cam_search" if kw.get("k", 1) > am.FUSED_K_MAX
                 else "cam_search_topk")
-        want = {name: groups if name in (tier, "cam_pack") else 0
+        want = {name: groups * banks if name in (tier, "cam_pack") else 0
                 for name in launches}
         check(launches == want, f"{path}: launches {launches}, expected "
               f"{want} for {groups} groups")
@@ -768,7 +786,8 @@ def phase_service():
                "queue_wait_p99_s": s["queue_wait_p99"],
                "groups": s["readbacks"], "fill_s": fill_s}
     return {"svc": svc, "paths": paths, "service": service,
-            "queries": queries, "l1_queries": l1_codes[l1_rows[:4]]}
+            "queries": queries, "l1_queries": l1_codes[l1_rows[:4]],
+            "stored": stored, "responses": resp}
 
 
 def _fill_indexed(svc, stored):
@@ -1098,9 +1117,13 @@ def _lpm_v4():
 
 def _ivf_exact():
     """A k-means index over a 65,536-row table on the card, searched at
-    probes = sets: bitwise the flat search, every slot certified."""
+    probes = sets: bitwise the flat search, every slot certified; then the
+    same search set-banked over a local mesh of ``SHARD_BANKS`` banks
+    (``ivf_exact_sharded``), bitwise the flat search too.  Returns both
+    paths' records."""
     import torch
     from repro_torch.core import am
+    from repro_torch.dist import LocalMesh
     from repro_torch.index import ivf
     rng = np.random.default_rng(SEED + 40)
     codes = rng.integers(0, 1 << BITS, (IVF_EXACT_ROWS, WIDTH),
@@ -1144,14 +1167,171 @@ def _ivf_exact():
           f"sets {search_s * 1e3:.1f} ms; indices and distances bitwise the "
           f"flat search, recall proxy 1.0 everywhere")
     info.update(out)
-    return info
+
+    # the same index, its sets banked over the local mesh: one coarse
+    # launch, and each non-empty set searched once, by the bank owning it
+    mesh = LocalMesh((SHARD_BANKS,), ("model",))
+
+    def sharded():
+        return ivf.search_sharded(index, queries, mesh=mesh, k=K,
+                                  probes=IVF_EXACT_SETS, backend="cuda")
+
+    fine = int((index.set_sizes > 0).sum())
+    rs, info_sh = _run_path("ivf_exact_sharded", sharded,
+                            {"cam_search_topk": fine, "cam_search": 1,
+                             "cam_pack": 1 + fine})
+    check(torch.equal(rs.indices, flat.indices)
+          and torch.equal(rs.distances, flat.distances)
+          and torch.equal(rs.recall_proxy, r.recall_proxy),
+          "ivf_exact_sharded: the set-banked search differs from the flat "
+          "search")
+    info_sh.update(banks=SHARD_BANKS, queries=IVF_EXACT_QUERIES,
+                   search_s=info_sh["seconds"])
+    print(f"  ivf_exact_sharded: {SHARD_BANKS} banks of "
+          f"{-(-IVF_EXACT_SETS // SHARD_BANKS)} sets, search "
+          f"{info_sh['seconds'] * 1e3:.1f} ms; bitwise the flat search")
+    return info, info_sh
 
 
 def phase_tcam_ivf():
     import torch
-    paths = {"lpm_v4": _lpm_v4(), "ivf_exact": _ivf_exact()}
+    paths = {"lpm_v4": _lpm_v4()}
+    paths["ivf_exact"], paths["ivf_exact_sharded"] = _ivf_exact()
     torch.cuda.empty_cache()
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: multi-bank sharding and the paper's Fig. 12
+# ---------------------------------------------------------------------------
+
+def _sharded_k10(run):
+    """The 1,000,000 rows of ``responses_k10`` in a service sharded over a
+    local mesh of ``SHARD_BANKS`` banks, the same 4,096 lookups through the
+    driver, each bitwise its flat result; then one ``SHARD_GROUP``-query
+    group through ``am.search_sharded`` under each merge, bitwise
+    ``am.search``, timed after a sync, with the merge alone timed on that
+    group's per-bank candidates."""
+    import torch
+    from repro_torch.core import am
+    from repro_torch.dist import LocalMesh
+    from repro_torch.serve import AMService
+
+    mesh = LocalMesh((SHARD_BANKS,), ("model",))
+    svc = AMService(mesh=mesh, merge="auto", time_fn=time.monotonic)
+    svc.create_table("responses", width=WIDTH, bits=BITS, distance="hamming",
+                     capacity=CAPACITY, policy="lru", backend="cuda")
+    stored = run["stored"]
+    t0 = time.perf_counter()
+    for s in range(0, ROWS, CHUNK):
+        m = min(CHUNK, ROWS - s)
+        svc.append("responses", stored[s:s + m].astype(np.int32),
+                   values=list(range(s, s + m)))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    svc.start_driver(max_in_flight=2)
+    futs, info = _drive(svc, "sharded_k10", "responses", run["queries"],
+                        banks=SHARD_BANKS, k=K)
+    svc.stop_driver()
+    flat = run["responses"]
+    for i, f in enumerate(futs):
+        r = f.result()
+        check(np.array_equal(r.indices, flat[i].indices)
+              and np.array_equal(r.distances, flat[i].distances),
+              f"sharded_k10 lookup {i} differs from responses_k10")
+    stats = svc.stats()
+    check(stats["sharded"] and stats["merge"] == "auto",
+          f"sharded_k10: stats {stats['sharded']}, {stats['merge']}")
+    groups = sum(info["buckets"].values())
+    rate = LOOKUPS / info["seconds"]
+    flat_rate = run["service"]["lookups_per_s"]
+    print(f"  sharded_k10: {SHARD_BANKS} banks, merge auto -> "
+          f"{am.resolve_merge('auto', SHARD_BANKS, K)}, {rate:.0f} lookups/s "
+          f"(responses_k10 {flat_rate:.0f}), launches per group "
+          f"{ {n: c // groups for n, c in info['launches'].items() if c} }, "
+          f"all {LOOKUPS:,} bitwise the flat results; fill {fill_s:.2f} s")
+
+    # one group under each merge, against the flat search
+    table = svc._tables["responses"].table
+    q = torch.from_numpy(np.stack(run["queries"][:SHARD_GROUP])).cuda()
+    want = am.search(table, q, k=K, backend="cuda", valid_rows=ROWS)
+    be = am._resolve_backend("cuda")
+    local_n = -(-table.n_rows // SHARD_BANKS)
+    parts = [am._bank_candidates(be, table, q, b * local_n, local_n, K,
+                                 ROWS, True, None)
+             for b in range(SHARD_BANKS)]
+    cand = (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]))
+    merges = {}
+    for merge in MERGES:
+        reset_launches()
+        got = am.search_sharded(table, q, mesh=mesh, k=K, backend="cuda",
+                                valid_rows=ROWS, merge=merge)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(torch.equal(got.indices, want.indices)
+              and torch.equal(got.distances, want.distances),
+              f"search_sharded merge={merge} differs from am.search")
+        per_group = {n: c for n, c in launches.items() if c}
+        check(per_group == {"cam_pack": SHARD_BANKS,
+                            "cam_search_topk": SHARD_BANKS},
+              f"search_sharded merge={merge}: launches {launches}")
+        group_ms = _time_ms(lambda: am.search_sharded(
+            table, q, mesh=mesh, k=K, backend="cuda", valid_rows=ROWS,
+            merge=merge), 5)
+        merge_ms = _time_ms(lambda: am._merge_bank_candidates(
+            *cand, mesh=mesh, axis="model", n_banks=SHARD_BANKS, k=K,
+            strategy=merge), 5)
+        merges[merge] = {"group_ms": group_ms, "merge_ms": merge_ms,
+                         "merge_share": merge_ms / group_ms,
+                         "launches": per_group,
+                         "traffic_bytes": am.merge_traffic_bytes(
+                             SHARD_BANKS, SHARD_GROUP, K, merge=merge,
+                             n_rows=table.n_rows)}
+        print(f"  search_sharded Q={SHARD_GROUP} merge={merge}: group "
+              f"{group_ms:.3f} ms, merge {merge_ms:.3f} ms "
+              f"({100 * merge_ms / group_ms:.1f} % of the group), launches "
+              f"{per_group}; bitwise am.search")
+    flat_ms = _time_ms(lambda: am.search(table, q, k=K, backend="cuda",
+                                         valid_rows=ROWS), 5)
+    print(f"  am.search Q={SHARD_GROUP} on the same table: {flat_ms:.3f} ms")
+    svc.drop_table("responses")
+    torch.cuda.empty_cache()
+    info.update(banks=SHARD_BANKS, lookups_per_s=rate,
+                flat_lookups_per_s=flat_rate, fill_s=fill_s, merges=merges,
+                flat_group_ms=flat_ms)
+    return info
+
+
+def _fig12():
+    """``torch_benchmarks.fig12_speedup.run()`` at its full shapes, its CSV
+    lines printed; the measured search of the first shape held bitwise to
+    the plain top-1 on the CPU."""
+    import torch
+    from repro_torch.core import am
+    from torch_benchmarks import fig12_speedup as fig12
+
+    def expect(rows):
+        n = sum(r["searches"] for r in rows)
+        return {"cam_search_topk": n, "cam_pack": n}
+
+    rows, info = _run_path("fig12", fig12.run, expect)
+    first = rows[0]
+    codes, queries = fig12.make_case(first["k_classes"], first["d"],
+                                     first["batch"])
+    got = fig12.top1(am.make_table(codes, bits=3),
+                     torch.from_numpy(queries).cuda())
+    want = am.search(am.make_table(codes, bits=3, device="cpu"), queries,
+                     k=1, backend="ref")
+    check(torch.equal(got.indices.cpu(), want.indices)
+          and torch.equal(got.distances.cpu(), want.distances),
+          "fig12: the measured search differs from the plain top-1")
+    info["rows"] = rows
+    return info
+
+
+def phase_sharded(run):
+    return {"sharded_k10": _sharded_k10(run), "fig12": _fig12()}
 
 
 # ---------------------------------------------------------------------------
@@ -1949,6 +2129,8 @@ def main() -> int:
         run = phase_service()
         print("phase 3b: TCAM routing and the exact index")
         tcam_paths = phase_tcam_ivf()
+        print("phase 3c: multi-bank sharding and the paper's Fig. 12")
+        tcam_paths.update(phase_sharded(run))
         print("phase 4: the HDC application and the device model")
         app_paths, encode_shapes = phase_app()
         print("phase 4b: the dense LM at full width")

@@ -1,6 +1,6 @@
 """Functional associative-search API — the SEE-MCAM primitive in PyTorch.
 
-Port of the single-device part of :mod:`repro.core.am`.  An immutable
+Port of :mod:`repro.core.am`.  An immutable
 :class:`AMTable` of multi-bit codes, plus :func:`search`, which runs batched
 top-k, threshold and multi-match lookups over it:
 
@@ -29,8 +29,14 @@ lowest row winning every tie, +inf masked rows included.  The **masked**
 tier adds ternary care planes, and ``fused_count`` an in-kernel threshold
 count for multi-match.  ``"analog"`` and ``"analog_cal"`` run the
 behavioural FeFET circuit model (:func:`make_analog_backend`), dense tier
-only.  The reference's sharded search comes with multi-bank sharding in a
-later port slice.
+only.
+
+Multi-bank search
+-----------------
+:func:`search_sharded` banks the rows over the ``model`` axis of a mesh
+(:mod:`repro_torch.dist`), runs the backend per bank on that bank's rows,
+and reduces the per-bank candidates by the all-gather, tree or ring merge
+(:data:`MERGE_STRATEGIES`), bitwise the single-device :func:`search`.
 
 Distance units: ``"hamming"`` counts differing symbols; ``"l1"`` is the
 level distance ``sum_d |q_d - t_d|``, realised for digital backends by
@@ -618,13 +624,18 @@ def _finalize_matches(indices, distances, count, thr_q, matches: int,
 
 def _pad_candidates(dist: torch.Tensor, idx: torch.Tensor,
                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pad a (Q, k_local) candidate list out to (Q, k) with +inf sentinels."""
-    q, k_local = dist.shape
+    """Pad a (..., k_local) candidate list out to (..., k) with +inf sentinels.
+
+    A fixed-width list where a bank or a set has fewer than k live
+    candidates: (+inf, ``_IDX_SENTINEL``) ranks after every genuine
+    candidate, +inf-masked real rows included.
+    """
+    k_local = dist.shape[-1]
     if k_local >= k:
         return dist, idx
-    pad = k - k_local
-    return (torch.cat([dist, dist.new_full((q, pad), torch.inf)], dim=1),
-            torch.cat([idx, idx.new_full((q, pad), _IDX_SENTINEL)], dim=1))
+    shape = (*dist.shape[:-1], k - k_local)
+    return (torch.cat([dist, dist.new_full(shape, torch.inf)], dim=-1),
+            torch.cat([idx, idx.new_full(shape, _IDX_SENTINEL)], dim=-1))
 
 
 def _care_kwargs(table: AMTable, be: _Backend) -> dict:
@@ -758,3 +769,316 @@ def search(table: AMTable, queries, *, k: int = 1, threshold=None,
     d = _mask_rows(d.to(torch.float32), valid_rows)
     idx, dist = _sorted_topk(d, k)
     return _finalize(idx, dist, threshold, squeeze)
+
+
+# ---------------------------------------------------------------------------
+# Sharded multi-bank search
+# ---------------------------------------------------------------------------
+
+#: Cross-bank merge strategies ``search_sharded`` accepts.
+MERGE_STRATEGIES = ("auto", "allgather", "tree", "ring")
+
+#: ``merge="auto"`` picks a collective merge (tree or ring) at and above
+#: this bank-axis width; below it the all-gather's single round wins.
+#: ``docs/ARCHITECTURE.md``'s decision table names the same value.
+TREE_MERGE_MIN_BANKS = 16
+
+#: ``merge="auto"`` upgrades tree -> ring when ``k >= this * n_banks``: the
+#: ring's O(Q * k) traffic, independent of the bank count, pays for its
+#: 2 * (banks - 1) rounds only when k >> banks.
+RING_MERGE_MIN_K_PER_BANK = 4
+
+
+def resolve_merge(merge: str, n_banks: int, k: int = 1) -> str:
+    """Resolve a ``merge=`` argument to ``"allgather"``, ``"tree"`` or
+    ``"ring"``: ``"auto"`` is the all-gather below
+    :data:`TREE_MERGE_MIN_BANKS` banks, then the ring when ``k >=``
+    :data:`RING_MERGE_MIN_K_PER_BANK` ``* n_banks``, else the tree."""
+    if merge not in MERGE_STRATEGIES:
+        raise ValueError(
+            f"unknown merge {merge!r}; expected one of {MERGE_STRATEGIES}")
+    if merge != "auto":
+        return merge
+    if n_banks < TREE_MERGE_MIN_BANKS:
+        return "allgather"
+    return "ring" if k >= RING_MERGE_MIN_K_PER_BANK * n_banks else "tree"
+
+
+def _lex_sort(dist: torch.Tensor, idx: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ascending (distance, row) along the last dimension.
+
+    Two stable sorts, by row and then by distance, give the order of the
+    reference's two-key ``lax.sort((dist, idx), num_keys=2)``.
+    """
+    by_idx = torch.sort(idx, dim=-1, stable=True)
+    dist = dist.gather(-1, by_idx.indices)
+    dist, by_dist = torch.sort(dist, dim=-1, stable=True)
+    return dist, by_idx.values.gather(-1, by_dist)
+
+
+def _lex_merge_topk(dist_a: torch.Tensor, idx_a: torch.Tensor,
+                    dist_b: torch.Tensor, idx_b: torch.Tensor,
+                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two candidate lists, keeping the first k by (distance, row).
+
+    The same row arriving from both lists (a tree over a bank count that is
+    not a power of two wraps its coverage) is masked to (+inf,
+    ``_IDX_SENTINEL``) before the cut, so no row takes two of the k slots.
+    """
+    dist, idx = _lex_sort(torch.cat([dist_a, dist_b], dim=-1),
+                          torch.cat([idx_a, idx_b], dim=-1))
+    dup = torch.zeros_like(idx, dtype=torch.bool)
+    dup[..., 1:] = idx[..., 1:] == idx[..., :-1]
+    dist, idx = _lex_sort(torch.where(dup, torch.inf, dist),
+                          torch.where(dup, _IDX_SENTINEL, idx))
+    return dist[..., :k], idx[..., :k]
+
+
+def _merge_bank_candidates(dist_local: torch.Tensor, idx_local: torch.Tensor,
+                           *, mesh, axis: str, n_banks: int, k: int,
+                           strategy: str
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reduce per-bank (Q, k_local) candidates to the global top-k.
+
+    Both inputs are bank-stacked (:mod:`repro_torch.dist.mesh`): a leading
+    dimension over the banks this process holds, each slice that bank's
+    list, ordered by (distance, global row) with +inf for masked rows.
+    ``strategy`` is ``"allgather"``, ``"tree"`` or ``"ring"`` (resolve
+    ``"auto"`` first).  Returns ``(indices, distances)``, bank-stacked,
+    every slice the same (Q, k) global top-k by (distance, global row).
+    """
+    if strategy == "ring":
+        # Reduce-scatter over query chunks: in round r bank p passes on the
+        # chunk it merged last round and folds its own candidates into the
+        # chunk arriving from bank p-1.  After banks-1 rounds bank p holds
+        # chunk (p+1) % banks merged over every bank exactly once, and one
+        # all-gather of the chunks rebuilds the (Q, k) result.
+        dist_c, idx_c = _pad_candidates(dist_local, idx_local, k)
+        b, q, w = dist_c.shape
+        chunk = -(-q // n_banks)
+        pad_q = chunk * n_banks - q
+        if pad_q:
+            dist_c = torch.cat(
+                [dist_c, dist_c.new_full((b, pad_q, w), torch.inf)], dim=1)
+            idx_c = torch.cat(
+                [idx_c, idx_c.new_full((b, pad_q, w), _IDX_SENTINEL)], dim=1)
+        dist_v = dist_c.reshape(b, n_banks, chunk, w)
+        idx_v = idx_c.reshape(b, n_banks, chunk, w)
+        held = torch.arange(b, device=dist_c.device)
+        p = mesh.axis_index(axis, device=dist_c.device)
+
+        def _local_chunk(c):
+            return dist_v[held, c], idx_v[held, c]
+
+        perm = [(i, (i + 1) % n_banks) for i in range(n_banks)]
+        acc_d, acc_i = _local_chunk(p)
+        for r in range(n_banks - 1):
+            acc_d = mesh.ppermute(acc_d, axis, perm)
+            acc_i = mesh.ppermute(acc_i, axis, perm)
+            ld, li = _local_chunk((p - r - 1) % n_banks)
+            acc_d, acc_i = _lex_merge_topk(acc_d, acc_i, ld, li, k)
+        # bank p finished chunk (p+1) % banks: gathered[j] is chunk j+1,
+        # so rolling by one restores query order before the un-pad
+        gd = torch.roll(mesh.all_gather(acc_d, axis), 1, dims=1)
+        gi = torch.roll(mesh.all_gather(acc_i, axis), 1, dims=1)
+        return (gi.reshape(1, chunk * n_banks, -1)[:, :q],
+                gd.reshape(1, chunk * n_banks, -1)[:, :q])
+
+    if strategy == "tree":
+        # Recursive doubling: round r folds in the running top-k of the
+        # bank 2**r places down-ring; after ceil(log2(banks)) rounds every
+        # bank has seen every bank (overlap on non-power-of-two widths is
+        # removed by the merge's dedup)
+        dist_c, idx_c = _pad_candidates(dist_local, idx_local, k)
+        for r in range((n_banks - 1).bit_length()):
+            shift = 1 << r
+            perm = [(i, (i + shift) % n_banks) for i in range(n_banks)]
+            dist_p = mesh.ppermute(dist_c, axis, perm)
+            idx_p = mesh.ppermute(idx_c, axis, perm)
+            dist_c, idx_c = _lex_merge_topk(dist_c, idx_c, dist_p, idx_p, k)
+        return idx_c, dist_c
+
+    # flat merge: every bank's candidates side by side, re-ranked by the
+    # two-key sort (exact also where a bank's rows are not a contiguous run
+    # of global ids, as in the index tier)
+    dists = mesh.all_gather(dist_local, axis, dim=1, tiled=True)
+    gis = mesh.all_gather(idx_local, axis, dim=1, tiled=True)
+    dists, gis = _lex_sort(dists, gis)
+    return gis[..., :k], dists[..., :k]
+
+
+def merge_traffic_bytes(n_banks: int, q: int, k: int, *, merge: str = "auto",
+                        n_rows: int | None = None) -> int:
+    """Per-device bytes *received* over the bank axis during the merge.
+
+    A traffic model of what :func:`_merge_bank_candidates` exchanges: each
+    candidate is a float32 distance and an int32 row.  ``n_rows`` defaults
+    to enough rows that every bank fields a full (Q, k) list.
+    """
+    if n_banks < 1:
+        raise ValueError(f"n_banks must be >= 1, got {n_banks}")
+    n_rows = n_banks * max(1, k) if n_rows is None else n_rows
+    k_eff = min(k, n_rows)
+    strategy = resolve_merge(merge, n_banks, k_eff)
+    local_n = -(-n_rows // n_banks)
+    k_local = min(k_eff, local_n)
+    entry = 4 + 4
+    if strategy == "allgather":
+        # every other bank's (Q, k_local) pair lands on this device
+        return (n_banks - 1) * q * k_local * entry
+    if strategy == "ring":
+        # reduce-scatter + all-gather, one (ceil(Q/banks), k_eff) chunk
+        # pair per round for banks-1 rounds each
+        chunk = -(-q // n_banks)
+        return 2 * (n_banks - 1) * chunk * k_eff * entry
+    # tree: one padded (Q, k_eff) pair per recursive-doubling round
+    return (n_banks - 1).bit_length() * q * k_eff * entry
+
+
+def _bank_candidates(be: _Backend, table: AMTable, queries: torch.Tensor,
+                     lo: int, local_n: int, k_local: int, valid_rows,
+                     use_fused: bool, thr: torch.Tensor | None):
+    """One bank's (Q, k_local) candidates and, with ``thr``, its count.
+
+    The bank holds rows ``[lo, lo + local_n)`` of the table, as a view;
+    the last bank may hold fewer and a bank past the end none.  Its list
+    is padded with (+inf, ``_IDX_SENTINEL``) where it holds fewer than
+    ``k_local`` rows (the reference pads the table instead, with rows that
+    can never reach the result, since k_eff <= N).  Returns (float32
+    distances, int32 global rows, (Q,) int32 count or None).
+    """
+    n = table.n_rows
+    rows = max(min(lo + local_n, n) - lo, 0)
+    qn, dev = queries.shape[0], queries.device
+    count = (None if thr is None
+             else torch.zeros((qn,), dtype=torch.int32, device=dev))
+    if rows == 0:
+        return (torch.full((qn, k_local), torch.inf, device=dev),
+                torch.full((qn, k_local), _IDX_SENTINEL, dtype=torch.int32,
+                           device=dev), count)
+    codes = table.codes[lo:lo + rows]
+    ckw = {} if table.care is None else {"care": table.care[lo:lo + rows]}
+    vr = n if valid_rows is None else valid_rows
+    if isinstance(vr, torch.Tensor):
+        vr_local = (vr.to(dev).reshape(()) - lo).clamp(0, rows)
+    else:
+        vr_local = min(max(int(vr) - lo, 0), rows)
+    if use_fused:
+        if thr is None:
+            il, dl = be.fused(queries, codes, table.bits, table.distance,
+                              k=k_local, valid_rows=vr_local, **ckw)
+        else:
+            il, dl, count = be.fused(queries, codes, table.bits,
+                                     table.distance, k=k_local,
+                                     valid_rows=vr_local, count_le=thr,
+                                     **ckw)
+    else:
+        d = be.dense(queries, codes, table.bits, table.distance,
+                     **ckw).to(torch.float32)
+        d = _mask_rows(d, vr_local)
+        if thr is not None:
+            count = (d <= thr).sum(dim=1, dtype=torch.int32)
+        il, dl = _sorted_topk(d, k_local)
+    dl, gi = _pad_candidates(dl, il.to(torch.int32) + lo, k_local)
+    return dl, gi, count
+
+
+def search_sharded(table: AMTable, queries, *, mesh, rules=None, k: int = 1,
+                   threshold=None, backend: str | BackendFn | None = None,
+                   valid_rows=None, merge: str = "auto",
+                   matches: int | None = None):
+    """Row-banked search over a mesh's bank axis (the multi-bank merge).
+
+    The table's rows split into ``mesh.shape[rules.tp]`` banks of
+    ``ceil(N / banks)`` contiguous rows (:meth:`Rules.am_table`; each bank
+    a row view, nothing copied); each bank runs the backend on its rows —
+    the fused tier per bank where :func:`search` would use it, with the
+    bank's slice of ``valid_rows`` — and keeps a local top-k with global
+    row indices; the merge then reduces the per-bank candidates to the
+    global top-k.
+
+    Args:
+      table, queries, k, threshold, backend, valid_rows, matches:
+        :func:`search` semantics.  With ``matches=`` the per-bank windows
+        ride the same merge and the per-bank counts are summed over the
+        bank axis (``psum``), so ``match_count`` and ``overflow`` are
+        exact.
+      mesh: a :class:`repro_torch.dist.LocalMesh` (banks as slices of one
+        device) or :class:`repro_torch.dist.ProcessGroupMesh` (one bank
+        per rank, each holding the whole table and searching its rows).
+      rules: optional :class:`repro_torch.dist.Rules`; defaults to
+        ``make_rules(mesh, "tp")``.
+      merge: ``"allgather"`` (one round, O(k * banks) traffic),
+        ``"tree"`` (ceil(log2(banks)) rounds of pairwise merges,
+        O(k * log banks)), ``"ring"`` (a reduce-scatter over query chunks
+        and one chunk all-gather, O(Q * k)), or ``"auto"``
+        (:func:`resolve_merge`).  Any bank count works with each.
+
+    When the rules have dp axes and Q divides their width, the queries are
+    split over them (:meth:`Rules.am_queries_dp`): each dp slice searches
+    its share against all banks.  On a local mesh every slice is this
+    device, so its share is the whole batch.
+
+    Returns:
+      :class:`AMSearchResult` or :class:`AMMultiMatchResult`, bitwise
+      :func:`search` for every merge: each bank's list is ordered by
+      (distance, global row) and the merges break ties to the lowest
+      global row.  This holds for backends that are row-wise functions of
+      their codes (an analog backend with variation is not).
+    """
+    from repro_torch.dist import specs as dist_specs
+
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if matches is not None:
+        if k != 1:
+            raise ValueError(
+                f"pass either k= or matches=, not both (k={k}, "
+                f"matches={matches})")
+        if matches < 1:
+            raise ValueError(f"matches must be >= 1, got {matches}")
+    rules = rules or dist_specs.make_rules(mesh, "tp")
+    axis = rules.tp
+    n_banks = mesh.shape[axis]
+    queries, squeeze = _prep_queries(table, queries)
+    be = _resolve_backend(backend)
+    _care_kwargs(table, be)             # masked-capability check (raises)
+
+    n = table.n_rows
+    k_eff = min(matches if matches is not None else k, n)
+    strategy = resolve_merge(merge, n_banks, k_eff)
+    local_n = -(-n // n_banks)
+    k_local = min(k_eff, local_n)
+    fusable = be.fused is not None and (matches is None or be.fused_count)
+    use_fused = fusable and 1 <= k_local <= FUSED_K_MAX
+    if fusable and k_local > FUSED_K_MAX:
+        _note_fused_fallback()
+    qn = queries.shape[0]
+    thr_q = (None if matches is None
+             else _match_threshold(threshold, qn, table.device))
+
+    # data-parallel query sharding: each dp slice searches its own share
+    dp_axes = tuple(rules.dp or ())
+    dp_width = mesh.width(dp_axes)
+    batch_axes = dp_axes if dp_width > 1 and qn % dp_width == 0 else None
+    q_lo, q_hi = mesh.batch_part(batch_axes, qn)
+    q_mine = queries[q_lo:q_hi]
+    thr_mine = None if thr_q is None else thr_q[q_lo:q_hi]
+
+    parts = [_bank_candidates(be, table, q_mine, b * local_n, local_n,
+                              k_local, valid_rows, use_fused, thr_mine)
+             for b in mesh.banks(axis)]
+    gi, dl = _merge_bank_candidates(
+        torch.stack([p[0] for p in parts]),
+        torch.stack([p[1] for p in parts]), mesh=mesh, axis=axis,
+        n_banks=n_banks, k=k_eff, strategy=strategy)
+    gi = mesh.gather_batch(gi[0], batch_axes)
+    dl = mesh.gather_batch(dl[0], batch_axes)
+    if matches is None:
+        return _finalize(gi, dl, threshold, squeeze)
+    # the exact global count: each bank counted disjoint rows
+    count = mesh.psum(torch.stack([p[2] for p in parts]), axis)[0]
+    count = mesh.gather_batch(count, batch_axes)
+    dl, gi = _pad_candidates(dl, gi, matches)
+    return _finalize_matches(gi, dl, count, thr_q, matches, squeeze)

@@ -1,13 +1,14 @@
 """repro_torch.index — set-associative IVF tier for sub-linear associative search.
 
-Port of :mod:`repro.index` (single device): partitions a table's rows into
+Port of :mod:`repro.index`: partitions a table's rows into
 S sets around quantized centroid codes, coarse-ranks the centroids with
 exact digital distances, and fine-searches only the top ``probes`` sets'
 row slabs with the real backends — on the GPU the fused
 ``cam_search_topk`` kernel, once per probed set.  ``probes == sets`` is
 bitwise the flat ``am.search``; fewer probes trade certified recall
 (``recall_proxy``) for O(S + probes * N/S) work per query.
-``search_sharded`` comes with multi-bank sharding (port slice 9).
+``search_sharded`` banks the sets over a mesh's bank axis and merges the
+per-bank candidates as ``am.search_sharded`` does.
 """
 
 from repro_torch.index.ivf import (

@@ -1,6 +1,6 @@
 """IVF-style set-associative index over ``AMTable`` — sub-linear search.
 
-Port of :mod:`repro.index.ivf` (single device).  Every ``am.search``
+Port of :mod:`repro.index.ivf`.  Every ``am.search``
 backend scans all N rows per query.  This module makes the scan
 *set-associative*, the way a multi-bank MCAM goes sub-linear: rows are
 partitioned into S sets around quantized centroid codes
@@ -399,7 +399,7 @@ def _coarse(index: IVFIndex, queries: torch.Tensor, probes: int
 
 
 def _fine_candidates(be, queries: torch.Tensor, index: IVFIndex,
-                     probed: torch.Tensor, k: int
+                     probed: torch.Tensor, k: int, sets=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Score the probed sets' slabs; return unsorted (dist, gid) candidates.
 
@@ -411,7 +411,9 @@ def _fine_candidates(be, queries: torch.Tensor, index: IVFIndex,
     pair; with a dense-tier backend the full slab, dead slots masked.  The
     slab-position tie-break equals the global-id tie-break because in-set
     slabs are ascending-id (the build/append invariant).  Empty sets give
-    (+inf, ``_IDX_SENTINEL``) without a launch, as the kernel would.
+    (+inf, ``_IDX_SENTINEL``) without a launch, as the kernel would, and
+    so do the sets outside ``sets`` = (first, stop) when it is given: a
+    bank of :func:`search_sharded` scores only the sets it owns.
 
     Returns (Q, P * w) float32 distances and int32 global row ids in
     (query, probe) order, w = kc on the fused tier and C on the dense one.
@@ -438,7 +440,7 @@ def _fine_candidates(be, queries: torch.Tensor, index: IVFIndex,
     for a, b in zip(starts, ends):
         s = int(sets_in_order[a])
         size = int(sizes[s])
-        if size == 0:
+        if size == 0 or (sets is not None and not sets[0] <= s < sets[1]):
             continue
         if fused:
             il, dl = be.fused(q_pairs[a:b], index.slabs[s], index.bits,
@@ -461,14 +463,11 @@ def _merge(dist: torch.Tensor, gid: torch.Tensor, k: int
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The first k candidates per query by (distance, global id), padded.
 
-    Two stable sorts (by id, then by distance) give the reference's
-    two-key ``lax.sort((dist, gid), num_keys=2)`` order, for any float
-    distances; then the cut to k and the (+inf, sentinel) padding.
+    The reference's two-key ``lax.sort((dist, gid), num_keys=2)`` order
+    (:func:`am._lex_sort`), then the cut to k and the (+inf, sentinel)
+    padding.
     """
-    by_id = torch.sort(gid, dim=1, stable=True)
-    dist = dist.gather(1, by_id.indices)
-    dist, by_dist = torch.sort(dist, dim=1, stable=True)
-    gid = by_id.values.gather(1, by_dist)
+    dist, gid = am._lex_sort(dist, gid)
     return am._pad_candidates(dist[:, :k], gid[:, :k], k)
 
 
@@ -521,7 +520,61 @@ def search(index: IVFIndex, queries, *, k: int = 1, probes: int = 1,
 def search_sharded(index: IVFIndex, queries, *, mesh, rules=None, k: int = 1,
                    probes: int = 1, threshold=None, backend=None,
                    merge: str = "auto") -> IVFSearchResult:
-    """Not ported yet: the set-sharded search comes with port slice 9."""
-    raise NotImplementedError(
-        "ivf.search_sharded is not ported to repro_torch yet; it comes with "
-        "port slice 9 (multi-bank sharding)")
+    """Set-banked probe search over a mesh's bank axis.
+
+    The sets split over the banks (:meth:`Rules.am_index`): each bank owns
+    a contiguous run of ``ceil(S / banks)`` whole sets.  The coarse pass
+    runs once, replicated (an (S, D) table ~rows/sets smaller than the
+    data); each bank fine-scores only the probed sets it owns, by the same
+    per-set grouping as :func:`search` (other probes give (+inf,
+    sentinel) candidates), sorts its candidates by (distance, global row
+    id) and keeps the first ``k``; the per-bank lists then reduce through
+    the same merges as the flat ``am.search_sharded``
+    (:func:`am._merge_bank_candidates`).  Bitwise :func:`search` for every
+    merge and bank count; each probed set is still searched once, by its
+    owner.
+
+    Args:
+      index, queries, k, probes, threshold, backend: :func:`search`
+        semantics.
+      mesh: a :mod:`repro_torch.dist` mesh; its ``rules.tp`` axis is the
+        set-bank axis.
+      rules: optional :class:`repro_torch.dist.Rules`; defaults to
+        ``make_rules(mesh, "tp")``.
+      merge: ``am.search_sharded`` semantics.
+
+    Returns:
+      :class:`IVFSearchResult`, bitwise :func:`search`.
+    """
+    from repro_torch.dist import specs as dist_specs
+
+    _validate(index, k, probes)
+    rules = rules or dist_specs.make_rules(mesh, "tp")
+    axis = rules.tp
+    n_banks = mesh.shape[axis]
+    be = am._resolve_backend(backend)
+    queries, squeeze = am._prep_queries(index.centroid_table(), queries)
+    k_eff = min(k, index.sets * index.set_capacity)
+    strategy = am.resolve_merge(merge, n_banks, k_eff)
+    probed, bound = _coarse(index, queries, probes)
+    s_local = -(-index.sets // n_banks)
+    dists, gids = [], []
+    for b in mesh.banks(axis):
+        dist, gid = _fine_candidates(be, queries, index, probed, k_eff,
+                                     sets=(b * s_local, (b + 1) * s_local))
+        dist, gid = am._lex_sort(dist, gid)
+        k_local = min(k_eff, dist.shape[1])
+        dists.append(dist[:, :k_local])
+        gids.append(gid[:, :k_local])
+    gid, dist = am._merge_bank_candidates(
+        torch.stack(dists), torch.stack(gids), mesh=mesh, axis=axis,
+        n_banks=n_banks, k=k_eff, strategy=strategy)
+    dist, gid = am._pad_candidates(dist[0], gid[0], k_eff)
+    res = am._finalize(gid, dist, threshold, squeeze)
+    proxy = _proxy(dist, bound)
+    frac = (index.set_sizes[probed.long()].sum(dim=1)
+            / index.set_sizes.sum().clamp(min=1)).to(torch.float32)
+    if squeeze:
+        proxy, probed, frac = proxy[0], probed[0], frac[0]
+    return IVFSearchResult(result=res, recall_proxy=proxy,
+                           probed_sets=probed, candidate_fraction=frac)

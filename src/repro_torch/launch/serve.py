@@ -17,9 +17,12 @@ event-driven (``fut.result(timeout=...)``).
 
 ``--am-index SETS`` / ``--am-probes P`` route the cache's lookups through
 the set-associative IVF tier (:mod:`repro_torch.index`), as in the
-reference.  ``--am-sharded``, ``--am-snapshot-dir`` and ``--am-restore``
-parse as in the reference and raise :class:`NotImplementedError` until the
-port slices that carry them land.
+reference.  ``--am-sharded`` banks the cache's rows over the ``model``
+axis of the serving mesh (:func:`repro_torch.launch.mesh.make_test_mesh`,
+a local mesh of one bank on one card, as the reference's test mesh is on
+one device) and ``--am-merge`` picks the cross-bank merge.
+``--am-snapshot-dir`` and ``--am-restore`` parse as in the reference and
+raise :class:`NotImplementedError` until durability is ported.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from repro_torch.configs.registry import ALIASES, get_config
 from repro_torch.core import hdc
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import transformer
 from repro_torch.serve import AMService, IndexSpec
 from repro_torch.serve.am_service import _not_ported
@@ -57,8 +61,8 @@ def parse_args(argv=None):
     ap.add_argument("--am-cache", type=int, default=8, metavar="CAPACITY",
                     help="AM response-cache capacity (0 disables the cache)")
     ap.add_argument("--am-sharded", action="store_true",
-                    help="bank the AM cache over devices (not ported yet: "
-                         "multi-bank sharding)")
+                    help="route the AM cache through am.search_sharded on "
+                         "the serving mesh (rows banked over `model`)")
     ap.add_argument("--am-merge",
                     choices=("auto", "allgather", "tree", "ring"),
                     default="auto",
@@ -80,20 +84,20 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build_cache_service(args, *, start_driver=True):
+def build_cache_service(args, mesh=None, *, start_driver=True):
     """Build the AM response-cache service the parsed flags describe.
 
     Returns ``None`` when ``--am-cache 0`` disabled the cache.  Otherwise a
-    deadline-batched local :class:`AMService` on ``args.device`` holding one
+    deadline-batched :class:`AMService` on ``args.device`` — sharded over
+    ``mesh`` (default :func:`make_test_mesh`) iff ``--am-sharded``, merge
+    from ``--am-merge`` — holding one
     ``"responses"`` table (``pallas`` backend, which the port runs on its
     CUDA kernels; LRU at ``--am-cache`` rows): a flat scan, or with
     ``--am-index SETS`` an :class:`IndexSpec` of that many sets probed
     ``--am-probes`` at a time.  ``start_driver=False`` skips the background
-    driver so tests can step the service deterministically.  The sharded and
-    durable variants raise :class:`NotImplementedError`.
+    driver so tests can step the service deterministically.  The durable
+    variant raises :class:`NotImplementedError`.
     """
-    if args.am_sharded:
-        raise _not_ported("--am-sharded", 9, "multi-bank sharding")
     if args.am_snapshot_dir or args.am_restore:
         raise _not_ported("--am-snapshot-dir/--am-restore", 10,
                           "durability")
@@ -101,8 +105,12 @@ def build_cache_service(args, *, start_driver=True):
         return None
     # deadline-batched: submits queue until the 5 ms flush_after expires;
     # the background driver owns the deadline
-    svc = AMService(max_batch=max(64, args.requests), flush_after=0.005,
-                    time_fn=time.monotonic, device=args.device)
+    if args.am_sharded and mesh is None:
+        mesh = make_test_mesh()
+    svc = AMService(mesh=mesh if args.am_sharded else None,
+                    merge=args.am_merge, max_batch=max(64, args.requests),
+                    flush_after=0.005, time_fn=time.monotonic,
+                    device=args.device)
     spec = (IndexSpec(sets=args.am_index, probes=args.am_probes)
             if args.am_index else None)
     svc.create_table("responses", width=CACHE_DIM, bits=CACHE_BITS,
@@ -209,8 +217,9 @@ def main(argv=None) -> dict:
     if svc is not None:
         s = svc.stats()
         cache = s["tables"]["responses"]
-        print(f"AM cache [local]: {cache['hits']}/{cache['lookups']} hits, "
-              f"{cache['rows']}/{cache['capacity']} rows, "
+        placement = f"sharded/{s['merge']}" if s["sharded"] else "local"
+        print(f"AM cache [{placement}]: {cache['hits']}/{cache['lookups']} "
+              f"hits, {cache['rows']}/{cache['capacity']} rows, "
               f"{s['readbacks']} readbacks, "
               f"{s['compilations']} compilations, "
               f"{s['dedup_hits']} deduped ({s['dedup_rate']:.0%})")

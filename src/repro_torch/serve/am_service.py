@@ -1,6 +1,6 @@
-"""Serving API for associative search — the CAM as a service, on one device.
+"""Serving API for associative search — the CAM as a service.
 
-Port of the single-device part of :mod:`repro.serve.am_service`:
+Port of :mod:`repro.serve.am_service` (durability aside):
 
   >>> svc = AMService()                                  # on the GPU
   >>> svc.create_table("responses", width=256, bits=3, capacity=4096,
@@ -53,8 +53,18 @@ Design, as in the reference:
   wall **clock** behave exactly as in the reference (see its module
   docstring).
 
-Not yet ported: ``mesh=`` (multi-bank sharding, slice 9) and
-``snapshot``/``restore`` (durability, slice 10) raise
+* **Pluggable placement.**  Constructed with a ``mesh`` (a
+  :mod:`repro_torch.dist` mesh; ``rules`` optional), every dispatch routes
+  through ``am.search_sharded`` — rows banked over the ``model`` axis as
+  row views of the one slab, the query bucket split over the dp axes when
+  it divides them — or, for an indexed table, ``ivf.search_sharded``.
+  ``merge=`` picks the cross-bank candidate reduction (``"auto"``,
+  ``"allgather"``, ``"tree"``, ``"ring"``) and is validated at
+  construction.  Results are bitwise the local service's; ``stats()``
+  reports ``"sharded"`` and ``"merge"``, and each group still costs one
+  readback.  On one GPU a group launches the search once per bank.
+
+Not yet ported: ``snapshot``/``restore`` (durability, slice 10) raise
 :class:`NotImplementedError`.
 """
 
@@ -72,6 +82,7 @@ import torch
 
 from repro_torch.core import am
 from repro_torch.device import resolve_device
+from repro_torch.dist.specs import make_rules
 from repro_torch.index import ivf
 from repro_torch.index.ivf import IndexSpec
 
@@ -316,7 +327,13 @@ class AMService:
     in-flight list; readbacks wait outside it.
 
     Args:
-      mesh: not ported yet (slice 9); must be None.
+      mesh: optional :mod:`repro_torch.dist` mesh; when given, every
+        dispatch routes through :func:`am.search_sharded` (rows banked over
+        ``rules.tp``) or :func:`ivf.search_sharded`.
+      rules: optional :class:`repro_torch.dist.Rules`; defaults to
+        ``make_rules(mesh, "tp")`` when a mesh is given.
+      merge: cross-bank merge strategy (``"auto"`` | ``"allgather"`` |
+        ``"tree"`` | ``"ring"``); only meaningful with a mesh.
       max_batch: queued lookups that trigger an automatic flush.
       flush_after: deadline in clock units on the oldest queued request; as
         an idle deadline it needs a real clock (``time_fn``) and a driver.
@@ -326,13 +343,14 @@ class AMService:
         when there is none.
     """
 
-    def __init__(self, *, mesh=None, max_batch: int = 64,
-                 flush_after: float | None = None,
+    def __init__(self, *, mesh=None, rules=None, merge: str = "auto",
+                 max_batch: int = 64, flush_after: float | None = None,
                  time_fn: Callable[[], float] | None = None, device=None):
-        if mesh is not None:
-            raise _not_ported("AMService(mesh=...)", 9, "multi-bank sharding")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if merge not in am.MERGE_STRATEGIES:
+            raise ValueError(f"unknown merge {merge!r}; expected one of "
+                             f"{am.MERGE_STRATEGIES}")
         if flush_after is not None and time_fn is None:
             warnings.warn(
                 "AMService(flush_after=...) with the default logical clock "
@@ -341,6 +359,10 @@ class AMService:
                 "time_fn=time.monotonic and run svc.start_driver() for a "
                 "live idle deadline.", RuntimeWarning, stacklevel=2)
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self._merge = merge
+        self._rules = ((rules or make_rules(mesh, "tp"))
+                       if mesh is not None else rules)
         self.max_batch = max_batch
         self.flush_after = flush_after
         self._time_fn = time_fn
@@ -973,7 +995,8 @@ class AMService:
         before = am.fused_fallbacks()
         out = self._dispatch(tab, _to_device(queries, self.device), t.n, q,
                              thr, now, k=k, backend=backend, matches=matches,
-                             index=index, probes=probes)
+                             index=index, probes=probes, mesh=self._mesh,
+                             rules=self._rules, merge=self._merge)
         self.fused_fallbacks += am.fused_fallbacks() - before
         if (index is not None and min(k, tab.n_rows) > am.FUSED_K_MAX
                 and am._resolve_backend(backend).fused is not None):
@@ -1085,10 +1108,12 @@ class AMService:
     @staticmethod
     def _dispatch(table: am.AMTable, queries, n_valid: int, q_valid: int,
                   thresholds, now: float, *, k: int, backend: str,
-                  matches: int | None, index=None, probes: int = 0):
+                  matches: int | None, index=None, probes: int = 0,
+                  mesh=None, rules=None, merge: str = "auto"):
         """One search over a padded bucket, plus the LRU touch of its hits.
 
-        With an ``index`` the search is :func:`ivf.search` at ``probes``.
+        With an ``index`` the search is :func:`ivf.search` at ``probes``;
+        with a ``mesh`` the sharded variant of each search runs.
         Returns (idx, dist, exact, matched, count, overflow, frac,
         new_meta); ``count`` and ``overflow`` are None unless ``matches``
         is set, ``frac`` (the mean candidate fraction of the real queries)
@@ -1096,16 +1121,20 @@ class AMService:
         """
         thr = None if thresholds is None else thresholds[:, None]
         count = overflow = frac = None
+        placed = ({} if mesh is None
+                  else {"mesh": mesh, "rules": rules, "merge": merge})
+        search = am.search if mesh is None else am.search_sharded
         if matches is not None:
-            res = am.search(table, queries, matches=matches, threshold=thr,
-                            backend=backend, valid_rows=n_valid)
+            res = search(table, queries, matches=matches, threshold=thr,
+                         backend=backend, valid_rows=n_valid, **placed)
             count, overflow = res.match_count, res.overflow
             top = res.priority_index
         elif index is not None:
             # coarse-rank the centroids, fine-search only the probed sets'
             # slabs; the index holds exactly the live rows
-            r = ivf.search(index, queries, k=k, probes=probes, threshold=thr,
-                           backend=backend)
+            isearch = ivf.search if mesh is None else ivf.search_sharded
+            r = isearch(index, queries, k=k, probes=probes, threshold=thr,
+                        backend=backend, **placed)
             res = r.result
             live_q = torch.arange(queries.shape[0], device=queries.device) \
                 < q_valid
@@ -1113,8 +1142,8 @@ class AMService:
                     / max(q_valid, 1)).to(torch.float32)
             top = res.best_row
         else:
-            res = am.search(table, queries, k=k, threshold=thr,
-                            backend=backend, valid_rows=n_valid)
+            res = search(table, queries, k=k, threshold=thr,
+                         backend=backend, valid_rows=n_valid, **placed)
             top = res.best_row
         # exact best-row hits of real (non-padding) queries get their
         # last-hit stamped; n_rows is touch()'s "no row" sentinel
@@ -1183,6 +1212,8 @@ class AMService:
                 "dedup_rate": self.dedup_hits / max(1, self.dispatched),
                 "fused_fallbacks": self.fused_fallbacks,
                 "compilations": len(self._signatures),
+                "sharded": self._mesh is not None,
+                "merge": self._merge,
                 "driver": drv.state if drv is not None else None,
                 "admission": {
                     "rejected": sum(t.rejected for t in

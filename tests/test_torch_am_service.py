@@ -269,8 +269,6 @@ def test_background_driver_thread_resolves_and_stops():
 
 
 def test_unported_features_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        AMService(mesh=object(), device="cpu")
     svc = _port()
     with pytest.raises(NotImplementedError, match="slice 10"):
         svc.snapshot("/nonexistent")

@@ -283,6 +283,44 @@ def test_ivf_on_the_card_matches_the_cpu(dev, k, distance):
         assert kernel.launches == want, (kernel.launches, want)
 
 
+@pytest.mark.parametrize("merge", ["allgather", "tree", "ring"])
+@pytest.mark.parametrize("n,k,distance,valid_rows", [
+    (4096, 10, "hamming", None),         # 8 banks of 512 rows
+    (3001, 10, "l1", 2500),              # 8 does not divide the rows
+    (3001, 300, "hamming", None),        # k above 256: the dense tier
+    (37, 20, "hamming", 11),             # banks shorter than k
+])
+def test_sharded_search_on_the_card_matches_the_cpu(dev, merge, n, k,
+                                                    distance, valid_rows):
+    """Each bank's fused (or dense) launch on the card, merged: bitwise the
+    CPU's plain path and the flat search, one pack and one search launch
+    per non-empty bank."""
+    from repro_torch.dist import LocalMesh
+    mesh = LocalMesh((8,), ("model",))
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 8, (n, 40)).astype(np.int32)
+    codes[5::7] = codes[3]                            # ties across banks
+    queries = np.concatenate([codes[rng.integers(0, n, 9)],
+                              rng.integers(0, 8, (7, 40))]).astype(np.int32)
+    gpu = am.make_table(codes, bits=3, distance=distance)
+    cpu = am.make_table(codes, bits=3, distance=distance, device="cpu")
+    kernel.reset_launches()
+    a = am.search_sharded(gpu, queries, mesh=mesh, k=k, backend="cuda",
+                          valid_rows=valid_rows, merge=merge)
+    banks = min(8, -(-n // -(-n // 8)))
+    tier = "cam_search_topk" if min(k, -(-n // 8)) <= am.FUSED_K_MAX \
+        else "cam_search"
+    want = {"cam_search": 0, "cam_search_topk": 0, "cam_pack": banks}
+    want[tier] = banks
+    assert kernel.launches == want, (kernel.launches, want)
+    b = am.search_sharded(cpu, queries, mesh=mesh, k=k, backend="cuda",
+                          valid_rows=valid_rows, merge=merge)
+    flat = am.search(cpu, queries, k=k, backend="ref", valid_rows=valid_rows)
+    for f in ("indices", "distances", "exact", "matched"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+        assert torch.equal(getattr(a, f).cpu(), getattr(flat, f)), f
+
+
 def test_lpm_lookup_on_the_card_matches_the_cpu(dev):
     rng = np.random.default_rng(3)
     routes = [tcam.Route(0, 0, 0)] + [

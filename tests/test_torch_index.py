@@ -5,12 +5,13 @@ port on the CPU (``device="cpu"``).  The port's ``"cuda"`` backend there
 runs the plain versions of its kernels, ``"ref"`` the plain compare; the
 reference runs ``"ref"``, or ``"pallas"`` in interpret mode where named.
 
-Mirrors the single-device tests of ``tests/test_am_index.py``.  Three of
-its tests have no counterpart here: ``test_search_is_jittable_with_index_
-as_pytree`` is about JAX tracing (the port's index is a plain dataclass of
-tensors and nothing is compiled), and ``test_sharded_bitwise_matches_
-unsharded`` / ``test_service_sharded_with_index`` wait for multi-bank
-sharding (port slice 9; ``search_sharded`` raises until then).
+Mirrors the single-device tests of ``tests/test_am_index.py``.
+``test_search_is_jittable_with_index_as_pytree`` has no counterpart: it is
+about JAX tracing (the port's index is a plain dataclass of tensors and
+nothing is compiled).  The two sharded tests, ``test_sharded_bitwise_
+matches_unsharded`` and ``test_service_sharded_with_index``, are mirrored
+in ``tests/test_torch_sharded.py`` and
+``tests/test_torch_sharded_service.py``.
 
 Tolerance: bitwise, for the trainers' centroids, ``assign``, every plane of
 a built or appended index (``set_radius`` against the reference's
@@ -34,6 +35,7 @@ from repro.serve import AMService as JaxService
 from repro.serve import IndexSpec as JaxSpec
 from repro_torch import index as tindex
 from repro_torch.core import am
+from repro_torch.dist import LocalMesh
 from repro_torch.index import partition
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import AMService, IndexSpec
@@ -304,8 +306,9 @@ def test_search_rejects_bad_probes_and_k():
         tindex.search(idx, q, probes=9)
     with pytest.raises(ValueError, match="k must be >= 1, got -2"):
         tindex.search(idx, q, k=-2, probes=1)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tindex.search_sharded(idx, q, mesh=None, probes=1)
+    with pytest.raises(ValueError, match="probes=9 exceeds"):
+        tindex.search_sharded(idx, q, mesh=LocalMesh((2,), ("model",)),
+                              probes=9)
 
 
 def test_non_2d_queries_rejected_everywhere():

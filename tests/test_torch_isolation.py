@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no reference package, no hidden fallback.
 
-* importing the port's modules pulls in neither ``jax`` nor ``repro``;
+* importing the port's modules, its benchmarks, examples and
+  ``chip_smoke.py`` pulls in neither ``jax`` nor ``repro``;
 * with no GPU, the entry points that default to the GPU raise instead of
   running on the CPU;
 * a CPU tensor never reaches the CUDA kernel loader: the CPU path of every
@@ -23,6 +24,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.registry import get_config
 from repro_torch import tcam
 from repro_torch.core import am, hdc
+from repro_torch.dist import LocalMesh
 from repro_torch.index import ivf
 from repro_torch.kernels import _build
 from repro_torch.kernels.cam_search import kernel, ops
@@ -64,6 +66,14 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.tcam, repro_torch.tcam.masks\n"
         "import repro_torch.tcam.routing, repro_torch.index\n"
         "import repro_torch.index.ivf, repro_torch.index.partition\n"
+        "import repro_torch.dist, repro_torch.dist.mesh\n"
+        "import repro_torch.dist.specs, repro_torch.launch.mesh\n"
+        "sys.path.insert(0, ROOT)\n"
+        "import torch_benchmarks.run, torch_benchmarks.common, chip_smoke\n"
+        "chip_smoke._kernel_modules()\n"
+        "import runpy\n"
+        "for ex in ('quickstart', 'hdc_classification', 'lpm_routing'):\n"
+        "    runpy.run_path(ROOT + f'/torch_examples/{ex}.py', run_name='x')\n"
         "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -71,8 +81,10 @@ def test_port_imports_neither_jax_nor_reference():
         "assert not bad, bad\n"
         "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c",
+                          f"ROOT = {os.path.dirname(SRC)!r}\n" + code],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert "isolated" in out.stdout
 
@@ -82,6 +94,8 @@ def test_no_gpu_means_an_error_not_the_cpu(monkeypatch):
     codes = np.zeros((4, 8), np.int32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AMService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AMService(mesh=LocalMesh((8,), ("model",)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         am.make_table(codes)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -130,6 +144,19 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     index = ivf.build(table, sets=4, method="hyperplane")
     ivf.search(index, codes[:4], k=3, probes=2, backend="cuda")
     ivf.search(index, codes[:4], k=300, probes=4, backend="cuda")
+    mesh = LocalMesh((8,), ("model",))
+    for merge in ("allgather", "tree", "ring"):
+        am.search_sharded(table, codes[:4], mesh=mesh, k=3, backend="cuda",
+                          merge=merge)
+        am.search_sharded(table, codes[:4], mesh=mesh, matches=2,
+                          backend="cuda", merge=merge)
+        ivf.search_sharded(index, codes[:4], mesh=mesh, k=3, probes=2,
+                           backend="cuda", merge=merge)
+    am.search_sharded(table, codes[:4], mesh=mesh, k=300, backend="cuda")
+    sharded = AMService(mesh=mesh, device="cpu")
+    sharded.create_table("t", width=12, capacity=64, backend="cuda")
+    sharded.append("t", codes)
+    assert sharded.lookup("t", codes[5], k=2).best_row == 5
     rt = tcam.build_routing_table([(0, 0, 1), (0xAB, 8, 2)], width=8,
                                   bits=2, device="cpu")
     tcam.lookup(rt, [0xABCD, 7], matches=2, backend="cuda")

@@ -237,9 +237,7 @@ def test_driver_resolves_submit_without_flush():
         svc.close()
 
 
-@pytest.mark.parametrize("flags", [["--am-sharded"],
-                                   ["--am-sharded", "--am-merge", "tree"],
-                                   ["--am-snapshot-dir", "snap"],
+@pytest.mark.parametrize("flags", [["--am-snapshot-dir", "snap"],
                                    ["--am-restore"]])
 def test_unported_flags_raise(flags):
     args = launch_serve.parse_args(flags + ["--device", "cpu"])
