@@ -50,6 +50,15 @@ exits non-zero without the final ``ok`` line:
    search; ``fig12`` runs ``torch_benchmarks.fig12_speedup.run()`` at its
    full shapes (its CSV lines printed) and holds the measured search of
    its first shape bitwise to the plain top-1;
+3d. durability at full size: ``durable_k10`` snapshots phase 3's service
+   (``responses``, 1,000,000 rows at capacity 2^20 x 256, with ``l1`` and
+   ``tcam``) under ``build/``, prints its bytes on disk and its seconds
+   (drain + capture under the lock, write + fsync), restores it with no
+   mesh and onto ``LocalMesh((8,), ("model",))`` (``durable_k10_mesh8``),
+   each time printing the seconds of ``restore()`` and to the first
+   resolved lookup, and drives the 4,096 lookups of ``responses_k10``,
+   each bitwise its result (1 + 1, then 8 + 8 launches a group), and the
+   ``tcam`` table's ``matches=16`` lookup, equal to the one before;
 4. the HDC application and the device model: ``hdc_isolet`` fits the
    ISOLET stand-in on the card and runs the Fig. 11(a) and (b) cells
    (``predict_cam`` on the CUDA backend equal to the ``ref`` backend), the
@@ -66,9 +75,11 @@ exits non-zero without the final ``ok`` line:
    the einsum forward on the same weights (finite, argmax equal at 99 % of
    positions or more, relative L2 difference at most 2.5e-2 with each
    position's input-token column zeroed); ``lm_serve`` runs the serving driver
-   (``repro_torch.launch.serve.main(["--arch", "yi-6b", "--full"])``: 3
-   slots, 6 requests, 8 new tokens, AM cache of 8 rows), which must answer
-   all 6 and serve repeats from the cache, and holds the engine's greedy
+   (``repro_torch.launch.serve.main(["--arch", "yi-6b", "--full",
+   "--am-snapshot-dir", ...])``: 3 slots, 6 requests, 8 new tokens, AM
+   cache of 8 rows), which must answer all 6 and serve repeats from the
+   cache, warm-restarts its cache with ``--am-restore`` (the rows come
+   back and a stored prompt's key hits), and holds the engine's greedy
    token for two prompts against the forward's argmax;
 5. each kernel held against its plain version and timed with CUDA events
    at the shapes its paths gave it, beside its bound, its plain version
@@ -81,7 +92,7 @@ Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
 3e-2 and each row at a relative L2 error of 2e-2), at dh = 8, at the
 prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
-head width.  Every path of phases 3, 3b, 3c and 4
+head width.  Every path of phases 3, 3b, 3c, 3d and 4
 runs with the launch counts of every kernel set to 0 just before it and
 read just after, and must launch its kernels.
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
@@ -126,6 +137,11 @@ IVF_EXACT_ROWS, IVF_EXACT_SETS, IVF_EXACT_QUERIES = 65_536, 64, 256
 # and the query group each merge is timed at
 SHARD_BANKS, SHARD_GROUP = 8, 1024
 MERGES = ("allgather", "tree", "ring")
+
+# durability: phase 3's snapshot and lm_serve's, under build/ (which
+# .gitignore lists), each deleted at the end of its path
+DURABLE_DIR = os.path.join(ROOT, "build", "durable_snapshot")
+DURABLE_SERVE_DIR = os.path.join(ROOT, "build", "durable_serve")
 
 # LPM: 32-bit addresses as 16 two-bit symbols (D = 16 is the kernels'
 # D_MULTIPLE, so no padding), 2^17 routes (a full IPv4 table holds about
@@ -787,7 +803,8 @@ def phase_service():
                "groups": s["readbacks"], "fill_s": fill_s}
     return {"svc": svc, "paths": paths, "service": service,
             "queries": queries, "l1_queries": l1_codes[l1_rows[:4]],
-            "stored": stored, "responses": resp}
+            "stored": stored, "responses": resp, "tcam_query": base[7],
+            "tcam_exact": exact_t}
 
 
 def _fill_indexed(svc, stored):
@@ -1335,6 +1352,108 @@ def phase_sharded(run):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: durability at full size
+# ---------------------------------------------------------------------------
+
+def _disk_bytes(directory):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(directory) for f in files)
+
+
+def _same_response(a, b):
+    return (np.array_equal(a.indices, b.indices)
+            and a.distances.tobytes() == b.distances.tobytes()
+            and np.array_equal(a.exact, b.exact)
+            and a.match_count == b.match_count and a.overflow == b.overflow)
+
+
+def _durable_path(run, path, mesh=None, banks=1):
+    """Restore phase 3's snapshot (onto ``mesh`` when given) with a wall
+    clock; time ``restore()`` and the first resolved lookup after it; drive
+    the 4,096 lookups of ``responses_k10`` through the driver, each bitwise
+    its ``responses_k10`` result, and the ``tcam`` table's ``matches=16``
+    lookup, equal to the one before the snapshot."""
+    import torch
+    from repro_torch.serve import AMService
+    queries, flat = run["queries"], run["responses"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = AMService.restore(DURABLE_DIR, mesh=mesh, time_fn=time.monotonic)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    first = svc.lookup("responses", queries[0], k=K)
+    first_s = time.perf_counter() - t0
+    check(_same_response(first, flat[0]),
+          f"{path}: the first lookup after restore() differs")
+    for name, t in run["svc"]._tables.items():
+        got = svc._tables[name]
+        check(got.n == t.n and got.version == t.version
+              and got.values == t.values,
+              f"{path}: table {name!r} restored with other state")
+    svc.start_driver(max_in_flight=2)
+    futs, info = _drive(svc, path, "responses", queries, banks=banks, k=K)
+    svc.stop_driver()
+    for i, f in enumerate(futs):
+        check(_same_response(f.result(), flat[i]),
+              f"{path} lookup {i} differs from responses_k10")
+    tcam = svc.lookup("tcam", run["tcam_query"], matches=16)
+    check(_same_response(tcam, run["tcam_exact"]),
+          f"{path}: the tcam matches=16 lookup differs from before the "
+          "snapshot")
+    rate = LOOKUPS / info["seconds"]
+    flat_rate = run["service"]["lookups_per_s"]
+    groups = sum(info["buckets"].values())
+    print(f"  {path}: restore() {restore_s:.3f} s, to the first resolved "
+          f"lookup {first_s:.3f} s; {rate:.0f} lookups/s (responses_k10 "
+          f"{flat_rate:.0f}), launches per group "
+          f"{ {n: c // groups for n, c in info['launches'].items() if c} }, "
+          f"all {LOOKUPS:,} bitwise responses_k10, tcam lookup equal")
+    del svc
+    torch.cuda.empty_cache()
+    info.update(banks=banks, restore_s=restore_s, first_lookup_s=first_s,
+                lookups_per_s=rate, flat_lookups_per_s=flat_rate)
+    return info
+
+
+def phase_durable(run, card):
+    """``durable_k10``: snapshot phase 3's service (``responses``, ``l1``
+    and ``tcam``) under ``build/``, restore it on the card with no mesh and
+    onto ``LocalMesh((8,), ("model",))``, each restore driving the
+    ``responses_k10`` lookups; the directory is deleted at the end."""
+    import shutil
+    from repro_torch.dist import LocalMesh
+    svc = run["svc"]
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        step = svc.snapshot(DURABLE_DIR)
+        snap_s = time.perf_counter() - t0
+        stages = svc._last_snapshot
+        disk = _disk_bytes(DURABLE_DIR)
+        held = sum(p.numel() * p.element_size()
+                   for t in svc._tables.values()
+                   for p in (t.table.codes, t.table.meta, t.table.care)
+                   if p is not None)
+        print(f"  durable_k10 snapshot on {card}: step {step}, "
+              f"{len(svc._tables)} tables ({', '.join(svc._tables)}), "
+              f"{disk:,} bytes on disk for {held:,} bytes of planes; "
+              f"{snap_s:.3f} s = drain+capture "
+              f"{stages['drain_capture_s']:.4f} s + write+fsync "
+              f"{stages['write_s']:.3f} s")
+        paths = {"durable_k10": _durable_path(run, "durable_k10"),
+                 "durable_k10_mesh8": _durable_path(
+                     run, "durable_k10_mesh8",
+                     LocalMesh((SHARD_BANKS,), ("model",)), SHARD_BANKS)}
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    paths["durable_k10"].update(
+        snapshot_s=snap_s, drain_capture_s=stages["drain_capture_s"],
+        write_s=stages["write_s"], disk_bytes=disk, plane_bytes=held,
+        tables=list(svc._tables))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the HDC application and the device model
 # ---------------------------------------------------------------------------
 
@@ -1680,13 +1799,49 @@ def _engine_against_forward(out, n=2):
     return checks
 
 
+def _lm_warm_restart(out):
+    """``--am-restore`` on the directory ``lm_serve``'s
+    ``--am-snapshot-dir`` committed: ``build_cache_service`` must bring
+    back the cache's rows, and the key of a generated prompt must hit with
+    its generation.  No model is loaded."""
+    import shutil
+    from repro_torch.core import hdc
+    from repro_torch.launch import serve as launch_serve
+    args = launch_serve.parse_args(["--arch", LM_ARCH, "--full",
+                                    "--am-snapshot-dir", DURABLE_SERVE_DIR,
+                                    "--am-restore"])
+    t0 = time.perf_counter()
+    svc = launch_serve.build_cache_service(args, start_driver=False)
+    restore_s = time.perf_counter() - t0
+    try:
+        rows = svc.stats("responses")["rows"]
+        check(rows == out["cache"]["rows"], f"lm_serve --am-restore: "
+              f"{rows} rows, the served cache held {out['cache']['rows']}")
+        rid = out["generated"][0]
+        proj = hdc.token_key_projection(out["engine"].cfg.vocab_size,
+                                        launch_serve.CACHE_DIM)
+        key = hdc.prompt_key(proj, out["workload"][rid],
+                             launch_serve.CACHE_BITS).cpu().numpy()
+        resp = svc.lookup("responses", key)
+        check(resp.hit and np.array_equal(resp.value, out["results"][rid]),
+              "lm_serve --am-restore: a stored prompt's key missed")
+    finally:
+        svc.close()
+        shutil.rmtree(DURABLE_SERVE_DIR, ignore_errors=True)
+    return {"rows": rows, "restore_s": restore_s, "hit": True}
+
+
 def _lm_serve():
-    """The serving driver at full width, launch counts read around it."""
+    """The serving driver at full width, launch counts read around it, its
+    cache snapshotted on exit and warm-restarted after."""
+    import shutil
     import torch
     from repro_torch.launch import serve as launch_serve
+    shutil.rmtree(DURABLE_SERVE_DIR, ignore_errors=True)
     reset_launches()
     t0 = time.perf_counter()
-    out = launch_serve.main(["--arch", LM_ARCH, "--full"])
+    out = launch_serve.main(["--arch", LM_ARCH, "--full",
+                             "--am-snapshot-dir", DURABLE_SERVE_DIR])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -1699,15 +1854,18 @@ def _lm_serve():
     check(sorted(out["results"]) == list(range(6)),
           f"lm_serve answered {sorted(out['results'])}")
     check(cache["hits"] > 0, "lm_serve: no repeat was served from the cache")
+    warm = _lm_warm_restart(out)
     checks = _engine_against_forward(out)
     print(f"  lm_serve: launches {launches}, {seconds:.3f} s; 6/6 answered, "
           f"{len(out['generated'])} generated in {out['ticks']} ticks, cache "
-          f"{cache['hits']}/{cache['lookups']} hits; engine vs forward "
-          f"{json.dumps(checks)}")
+          f"{cache['hits']}/{cache['lookups']} hits; --am-restore brought "
+          f"back {warm['rows']} rows in {warm['restore_s']:.3f} s and a "
+          f"stored key hit; engine vs forward {json.dumps(checks)}")
     return {"launches": launches, "seconds": seconds, "groups": groups,
             "answered": len(out["results"]), "generated": len(out["generated"]),
             "ticks": out["ticks"], "hits": cache["hits"],
-            "lookups": cache["lookups"], "engine_vs_forward": checks}
+            "lookups": cache["lookups"], "warm_restart": warm,
+            "engine_vs_forward": checks}
 
 
 def phase_lm():
@@ -2131,6 +2289,8 @@ def main() -> int:
         tcam_paths = phase_tcam_ivf()
         print("phase 3c: multi-bank sharding and the paper's Fig. 12")
         tcam_paths.update(phase_sharded(run))
+        print("phase 3d: durability at full size")
+        tcam_paths.update(phase_durable(run, card))
         print("phase 4: the HDC application and the device model")
         app_paths, encode_shapes = phase_app()
         print("phase 4b: the dense LM at full width")

@@ -13,6 +13,7 @@ the reference hands them to ``shard_map``.
   ``am_queries_dp``  (Q, D)  queries, batch on the dp axes
   ``am_meta``        (N, M)  per-row serving meta, replicated
   ``am_index``       (S,)    per-set index arrays, S on tp
+  ``am_state``       the spec tree of one durable table state
 
 The LM roles (``act_resid``, ``w2``, ``embed``, ...) and the ``fsdp`` and
 ``resid_seq_shard`` fields they read come with training.
@@ -80,6 +81,34 @@ class Rules:
         (the coarse pass runs once, outside the banks).
         """
         return (self.tp,)
+
+    def am_state(self, *, ternary: bool = False,
+                 indexed: bool = False) -> dict:
+        """Spec tree of one durable table-state dict (the snapshot layer).
+
+        Keyed exactly like the state :mod:`repro_torch.serve.snapshot`
+        serialises per table: ``codes`` row-banked per :meth:`am_table`,
+        ``meta`` per :meth:`am_meta`, the pickled ``values`` byte plane
+        replicated (host payloads have no device layout), plus, when the
+        flags say the table carries them, the ternary ``care`` plane
+        (banked with its codes) and the five ``index`` arrays (set-banked
+        per :meth:`am_index`, except the replicated coarse ``centroids``).
+        :func:`repro_torch.checkpoint.elastic.reshard_restore` checks it
+        against the mesh a snapshot is restored onto.
+        """
+        state: dict = {"codes": self.am_table(), "meta": self.am_meta(),
+                       "values": ()}
+        if ternary:
+            state["care"] = self.am_table()
+        if indexed:
+            state["index"] = {
+                "centroids": (),
+                "slabs": self.am_index(),
+                "row_ids": self.am_index(),
+                "set_sizes": self.am_index(),
+                "set_radius": self.am_index(),
+            }
+        return state
 
 
 def make_rules(mesh, layout: str) -> Rules:

@@ -21,13 +21,16 @@ reference.  ``--am-sharded`` banks the cache's rows over the ``model``
 axis of the serving mesh (:func:`repro_torch.launch.mesh.make_test_mesh`,
 a local mesh of one bank on one card, as the reference's test mesh is on
 one device) and ``--am-merge`` picks the cross-bank merge.
-``--am-snapshot-dir`` and ``--am-restore`` parse as in the reference and
-raise :class:`NotImplementedError` until durability is ported.
+``--am-snapshot-dir DIR`` commits a snapshot of the cache on exit, and
+``--am-restore`` warm-restarts the cache from the one committed there,
+onto this run's mesh (:mod:`repro_torch.serve.snapshot`); with nothing
+committed yet the cache starts cold.
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import time
 
 import numpy as np
@@ -39,7 +42,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import transformer
 from repro_torch.serve import AMService, IndexSpec
-from repro_torch.serve.am_service import _not_ported
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import ContinuousBatcher, Request
 
@@ -75,10 +77,15 @@ def parse_args(argv=None):
                     help="sets probed per indexed lookup (only with "
                          "--am-index)")
     ap.add_argument("--am-snapshot-dir", default=None, metavar="DIR",
-                    help="durable-cache directory (not ported yet)")
+                    help="durable-cache directory: the AM cache is "
+                         "snapshotted here (atomically, keep-2 versioned) "
+                         "on exit")
     ap.add_argument("--am-restore", action="store_true",
                     help="warm-restart the AM cache from --am-snapshot-dir "
-                         "(not ported yet)")
+                         "before serving (elastic: the mesh may have a "
+                         "different bank count than the snapshotting run); "
+                         "ignored when the directory holds no committed "
+                         "snapshot yet")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the GPU)")
     return ap.parse_args(argv)
@@ -95,27 +102,33 @@ def build_cache_service(args, mesh=None, *, start_driver=True):
     CUDA kernels; LRU at ``--am-cache`` rows): a flat scan, or with
     ``--am-index SETS`` an :class:`IndexSpec` of that many sets probed
     ``--am-probes`` at a time.  ``start_driver=False`` skips the background
-    driver so tests can step the service deterministically.  The durable
-    variant raises :class:`NotImplementedError`.
+    driver so tests can step the service deterministically.
+
+    With ``--am-restore`` and a committed snapshot under
+    ``--am-snapshot-dir``, the service warm-restarts from it instead:
+    tables, payloads and row counts survive the process boundary, and the
+    snapshot's rows bank onto this run's mesh, whatever its bank count.
     """
-    if args.am_snapshot_dir or args.am_restore:
-        raise _not_ported("--am-snapshot-dir/--am-restore", 10,
-                          "durability")
     if not args.am_cache:
         return None
-    # deadline-batched: submits queue until the 5 ms flush_after expires;
-    # the background driver owns the deadline
     if args.am_sharded and mesh is None:
         mesh = make_test_mesh()
-    svc = AMService(mesh=mesh if args.am_sharded else None,
-                    merge=args.am_merge, max_batch=max(64, args.requests),
-                    flush_after=0.005, time_fn=time.monotonic,
-                    device=args.device)
-    spec = (IndexSpec(sets=args.am_index, probes=args.am_probes)
-            if args.am_index else None)
-    svc.create_table("responses", width=CACHE_DIM, bits=CACHE_BITS,
-                     capacity=args.am_cache, policy="lru", backend="pallas",
-                     index=spec)
+    mesh = mesh if args.am_sharded else None
+    # deadline-batched: submits queue until the 5 ms flush_after expires;
+    # the background driver owns the deadline
+    placed = dict(mesh=mesh, merge=args.am_merge,
+                  max_batch=max(64, args.requests), flush_after=0.005,
+                  time_fn=time.monotonic, device=args.device)
+    if (args.am_restore and args.am_snapshot_dir and
+            (pathlib.Path(args.am_snapshot_dir) / "service.json").exists()):
+        svc = AMService.restore(args.am_snapshot_dir, **placed)
+    else:
+        svc = AMService(**placed)
+        spec = (IndexSpec(sets=args.am_index, probes=args.am_probes)
+                if args.am_index else None)
+        svc.create_table("responses", width=CACHE_DIM, bits=CACHE_BITS,
+                         capacity=args.am_cache, policy="lru",
+                         backend="pallas", index=spec)
     if start_driver:
         svc.start_driver()
     return svc
@@ -203,6 +216,10 @@ def main(argv=None) -> dict:
             resp = fut.result()
             results[i] = resp.value if resp.hit else results[rep_of[i]]
         svc.stop_driver()
+        if args.am_snapshot_dir:
+            step = svc.snapshot(args.am_snapshot_dir)
+            print(f"AM cache snapshot committed: step {step} -> "
+                  f"{args.am_snapshot_dir}")
     wall = time.time() - t0
 
     generated = {r.rid for r in done}

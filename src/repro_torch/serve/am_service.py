@@ -1,6 +1,6 @@
 """Serving API for associative search — the CAM as a service.
 
-Port of :mod:`repro.serve.am_service` (durability aside):
+Port of :mod:`repro.serve.am_service`:
 
   >>> svc = AMService()                                  # on the GPU
   >>> svc.create_table("responses", width=256, bits=3, capacity=4096,
@@ -64,8 +64,11 @@ Design, as in the reference:
   reports ``"sharded"`` and ``"merge"``, and each group still costs one
   readback.  On one GPU a group launches the search once per bank.
 
-Not yet ported: ``snapshot``/``restore`` (durability, slice 10) raise
-:class:`NotImplementedError`.
+* **Durability.**  ``snapshot(dir)`` commits every table atomically through
+  :mod:`repro_torch.checkpoint`, in the reference's on-disk format;
+  ``AMService.restore(dir, mesh=..., device=...)`` warm-restarts onto any
+  bank count with bitwise-identical search results (see
+  :mod:`repro_torch.serve.snapshot`).
 """
 
 from __future__ import annotations
@@ -112,12 +115,6 @@ class TableFullError(RuntimeError):
 
 class AdmissionError(RuntimeError):
     """A submit was refused by admission control (budget or queue cap)."""
-
-
-def _not_ported(what: str, slice_no: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it comes with port slice "
-        f"{slice_no} ({name})")
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +383,7 @@ class AMService:
         self.dispatched = 0            # requests routed through a dispatch
         self.dedup_hits = 0            # of those, resolved from a shared row
         self.fused_fallbacks = 0       # groups dense-downgraded by k ceiling
+        self._last_snapshot: dict | None = None   # stage seconds, see snapshot
 
     # -- clock ---------------------------------------------------------------
 
@@ -913,16 +911,40 @@ class AMService:
             self._drain_req = False
         return ok
 
-    # -- durability: not ported yet ------------------------------------------
+    # -- durability (repro_torch.serve.snapshot) -----------------------------
 
-    def snapshot(self, directory, **kwargs) -> int:
-        """Not ported yet: durable snapshots come with port slice 10."""
-        raise _not_ported("AMService.snapshot", 10, "durability")
+    def snapshot(self, directory, *, step: int | None = None,
+                 keep: int = 2, app: dict | None = None,
+                 drain_timeout: float | None = 60.0) -> int:
+        """Durable snapshot of every table under ``directory``; returns step.
+
+        Quiesces via :meth:`drain` first (every acknowledged append is
+        included), copies the tables under the service lock, then commits
+        one atomic checkpoint per table plus a ``service.json`` commit point
+        — see :mod:`repro_torch.serve.snapshot` for the layout and manifest
+        contract.
+        """
+        from repro_torch.serve import snapshot as _snap
+        return _snap.snapshot_service(self, directory, step=step, keep=keep,
+                                      app=app, drain_timeout=drain_timeout)
 
     @classmethod
-    def restore(cls, directory, **kwargs) -> "AMService":
-        """Not ported yet: warm restarts come with port slice 10."""
-        raise _not_ported("AMService.restore", 10, "durability")
+    def restore(cls, directory, *, mesh=None, rules=None,
+                step: int | None = None, time_fn=None,
+                merge: str | None = None, max_batch: int | None = None,
+                flush_after: float | None = None,
+                device=None) -> "AMService":
+        """Warm-restart a service from a :meth:`snapshot` directory.
+
+        ``mesh`` may have another bank count than the snapshotting service
+        (elastic: searches stay bitwise-identical).  ``device`` is where the
+        tables go; ``None`` means the GPU, and raises without one.
+        """
+        from repro_torch.serve import snapshot as _snap
+        return _snap.restore_service(directory, mesh=mesh, rules=rules,
+                                     step=step, time_fn=time_fn, merge=merge,
+                                     max_batch=max_batch,
+                                     flush_after=flush_after, device=device)
 
     def _expedite(self, fut: PendingSearch) -> None:
         """Force progress for one future: dispatch its bucket, help retire."""

@@ -268,14 +268,6 @@ def test_background_driver_thread_resolves_and_stops():
                 if t not in before and t.is_alive()]
 
 
-def test_unported_features_raise_not_implemented():
-    svc = _port()
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        svc.snapshot("/nonexistent")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        AMService.restore("/nonexistent")
-
-
 def test_capacity_bound_and_reject_policy():
     svc = _port()
     svc.create_table("r", width=4, capacity=3, policy="reject")

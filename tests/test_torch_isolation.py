@@ -68,12 +68,25 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.index.ivf, repro_torch.index.partition\n"
         "import repro_torch.dist, repro_torch.dist.mesh\n"
         "import repro_torch.dist.specs, repro_torch.launch.mesh\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
+        "import repro_torch.checkpoint.elastic, repro_torch.serve.snapshot\n"
         "sys.path.insert(0, ROOT)\n"
         "import torch_benchmarks.run, torch_benchmarks.common, chip_smoke\n"
+        "import torch_benchmarks.bench_am_serve\n"
         "chip_smoke._kernel_modules()\n"
         "import runpy\n"
-        "for ex in ('quickstart', 'hdc_classification', 'lpm_routing'):\n"
+        "for ex in ('quickstart', 'hdc_classification', 'lpm_routing',\n"
+        "           'serve_am_cache'):\n"
         "    runpy.run_path(ROOT + f'/torch_examples/{ex}.py', run_name='x')\n"
+        "import io, json, tempfile\n"
+        "h = runpy.run_path(ROOT + '/tests/harness/torch_replica_harness.py',"
+        " run_name='x')\n"
+        "ops = [{'op': 'create', 'table': 't', 'capacity': 8},\n"
+        "       {'op': 'append', 'table': 't', 'seq': 0, 'code': [1] * 16,\n"
+        "        'value': 'v'}, {'op': 'sync'}, {'op': 'quit'}]\n"
+        "sys.stdin = io.StringIO(''.join(json.dumps(o) + '\\n' "
+        "for o in ops))\n"
+        "h['run_replica'](tempfile.mkdtemp(), 2, False, 'cpu')\n"
         "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

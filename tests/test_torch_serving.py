@@ -26,8 +26,10 @@ from repro.serve.scheduler import ContinuousBatcher as RefBatcher
 from repro.serve.scheduler import Request as RefRequest
 from repro_torch import convert
 from repro_torch.configs.registry import get_config
+from repro_torch.dist import LocalMesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer
+from repro_torch.serve import read_service_manifest
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import ContinuousBatcher, Request
 
@@ -237,12 +239,78 @@ def test_driver_resolves_submit_without_flush():
         svc.close()
 
 
-@pytest.mark.parametrize("flags", [["--am-snapshot-dir", "snap"],
-                                   ["--am-restore"]])
-def test_unported_flags_raise(flags):
-    args = launch_serve.parse_args(flags + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="port slice"):
-        launch_serve.build_cache_service(args)
+def test_parse_snapshot_flags():
+    argv = ["--am-snapshot-dir", "/tmp/cam", "--am-restore"]
+    args = launch_serve.parse_args(argv + ["--device", "cpu"])
+    assert args.am_snapshot_dir == "/tmp/cam" and args.am_restore is True
+    ref = ref_serve.parse_args(argv)
+    assert (ref.am_snapshot_dir, ref.am_restore) == ("/tmp/cam", True)
+    args = launch_serve.parse_args(["--device", "cpu"])
+    assert args.am_snapshot_dir is None and args.am_restore is False
+
+
+def test_restore_flag_warm_restarts_the_cache(tmp_path):
+    """snapshot -> build_cache_service(--am-restore) round trip: the stored
+    response survives the service boundary; a cold dir falls through."""
+    args = launch_serve.parse_args(["--am-cache", "16", "--am-snapshot-dir",
+                                    str(tmp_path), "--am-restore",
+                                    "--device", "cpu"])
+    # cold start: no committed snapshot yet -> a fresh empty table
+    svc = launch_serve.build_cache_service(args, start_driver=False)
+    try:
+        assert svc.stats("responses")["rows"] == 0
+        key = np.zeros((launch_serve.CACHE_DIM,), np.int32)
+        svc.append("responses", key, values=["warm"])
+        svc.snapshot(tmp_path)
+    finally:
+        svc.close()
+
+    svc2 = launch_serve.build_cache_service(args, start_driver=False)
+    try:
+        assert svc2.stats("responses")["rows"] == 1
+        resp = svc2.lookup("responses",
+                           np.zeros((launch_serve.CACHE_DIM,), np.int32))
+        assert resp.hit and resp.value == "warm"
+    finally:
+        svc2.close()
+
+
+def test_restore_flag_reshards_onto_the_serving_mesh(tmp_path):
+    """A local cache's snapshot warm-restarts banked over --am-sharded's
+    mesh (8 banks here), and the stored response still hits."""
+    args = launch_serve.parse_args(["--am-snapshot-dir", str(tmp_path),
+                                    "--device", "cpu"])
+    svc = launch_serve.build_cache_service(args, start_driver=False)
+    key = np.arange(launch_serve.CACHE_DIM, dtype=np.int32) % 8
+    svc.append("responses", key, values=["banked"])
+    svc.snapshot(tmp_path)
+    args = launch_serve.parse_args(["--am-snapshot-dir", str(tmp_path),
+                                    "--am-restore", "--am-sharded",
+                                    "--am-merge", "tree", "--device", "cpu"])
+    svc2 = launch_serve.build_cache_service(
+        args, LocalMesh((8,), ("model",)), start_driver=False)
+    try:
+        s = svc2.stats()
+        assert s["sharded"] and s["merge"] == "tree"
+        resp = svc2.lookup("responses", key)
+        assert resp.hit and resp.value == "banked"
+    finally:
+        svc2.close()
+
+
+def test_main_snapshots_on_exit_and_warm_restarts(tmp_path, capsys):
+    """--am-snapshot-dir commits the cache on exit; a second run with
+    --am-restore serves every request from it without generating."""
+    flags = ["--device", "cpu", "--am-snapshot-dir", str(tmp_path)]
+    first = launch_serve.main(flags)
+    assert "AM cache snapshot committed: step 1" in capsys.readouterr().out
+    second = launch_serve.main(flags + ["--am-restore"])
+    assert second["generated"] == [] and second["ticks"] == 0
+    assert second["cache"]["hits"] == 6
+    assert second["cache"]["rows"] == first["cache"]["rows"]
+    for i, gen in second["results"].items():
+        np.testing.assert_array_equal(gen, first["results"][i])
+    assert read_service_manifest(tmp_path)["step"] == 2
 
 
 def test_main_serves_every_request(capsys):

@@ -146,3 +146,37 @@ def test_quickstart_example_shards_over_banks():
 def test_hdc_classification_example():
     out = _run("torch_examples/hdc_classification.py", "ucihar")
     assert "3-bit SEE-MCAM (CUDA)" in out and "hdc_encode codes" in out
+
+
+def test_serve_am_cache_example():
+    out = _run("torch_examples/serve_am_cache.py")
+    assert "3/6 requests served from the SEE-MCAM cache" in out
+    assert "(3/64 rows, 0 evicted) on cpu" in out
+
+
+@pytest.mark.parametrize("sweep,fields", [
+    ((), ("hit_rate", "batched_dedup_rate", "evicted", "compilations",
+          "readbacks")),
+    (("--saturation",), ("offered", "shed", "admitted", "max_queue")),
+    (("--snapshot",), ("disk_mb",)),
+])
+def test_bench_am_serve_smoke_equals_reference(sweep, fields):
+    """Each sweep's model-free fields on the seeded Zipf trace (hit rates,
+    dedup, evictions, dispatch signatures, readbacks, admission counts)
+    and the snapshot's bytes on disk (the same files) are the reference
+    script's."""
+    ours = _rows(_run("torch_benchmarks/bench_am_serve.py", "--smoke",
+                      *sweep))
+    ref = _rows(_ref("bench_am_serve", "--smoke", *sweep))
+    compared = 0
+    for name, got in ours.items():
+        want = ref.get(name, {})
+        for f in fields:
+            if f in want:
+                assert got[f] == want[f], (name, f)
+                compared += 1
+        assert got.get("device", "cpu") == "cpu"
+    assert compared >= 2 and set(ref) <= set(ours)
+    if sweep == ("--snapshot",):
+        for row in ours.values():
+            assert {"restore_b4_ms", "recovery_b2_ms", "write_ms"} <= set(row)
