@@ -81,6 +81,30 @@ exits non-zero without the final ``ok`` line:
    cache, warm-restarts its cache with ``--am-restore`` (the rows come
    back and a stored prompt's key hits), and holds the engine's greedy
    token for two prompts against the forward's argmax;
+4c. training, with phase 4b's weights released first; each path prints
+   ``torch.cuda.mem_get_info()`` before it and the peak allocation after,
+   and launches no hand-written kernel (the reference trains on the
+   einsum attention; the flash kernel has no backward): ``train_yi6b``
+   trains yi-6b at full width and 16 of its 32 layers (its 5.80 B
+   parameters at 16 bytes of training state each exceed the card) for 6
+   steps of ``make_train_step`` at B = 2, S = 2,048 on ``lm_synth``
+   batches, weights drawn on the card, remat by block; losses finite and
+   falling, the weights changed, ``grad_norm`` finite; it prints the
+   median step over steps 2-6 split into forward + backward and optimizer
+   by CUDA events, tokens/s and the model FLOP/s share of the bf16 dense
+   peak (6 x params x tokens, the recompute not counted);
+   ``train_card_vs_cpu`` runs the float32 smoke config's step 3 times on
+   the card and on the CPU from the same state and batches (losses within
+   rtol 1e-4, parameters within 1e-5); ``train_loop`` runs
+   ``repro_torch.launch.train.train`` for 25 steps with a failure injected
+   at step 17 (one restart, final step 25, loss falls);
+   ``train_compressed`` runs ``make_train_step_compressed`` on two pods of
+   the card (yi-6b full width, 4 layers, B = 4, S = 512, 4 steps; the
+   codes summed as int8; the first loss within 2 % of the baseline
+   step's), split into per-pod gradients, quantize/reduce and optimizer;
+   ``pipeline_fwd`` runs ``make_pp_forward`` over 8 full-width blocks in 2
+   stages of 4 microbatches of 1 x 1,024 tokens, held to the blocks
+   applied in order (relative L2 at most ``LM_LOGIT_REL_L2``);
 5. each kernel held against its plain version and timed with CUDA events
    at the shapes its paths gave it, beside its bound, its plain version
    and a library call where one computes the same thing; ``hdc_encode``
@@ -94,7 +118,7 @@ shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
 prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
 head width.  Every path of phases 3, 3b, 3c, 3d and 4
 runs with the launch counts of every kernel set to 0 just before it and
-read just after, and must launch its kernels.
+read just after, and must launch its kernels (phase 4c's none).
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``; the build goes to ``build/repro_torch/``.
 """
@@ -103,6 +127,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -189,6 +214,24 @@ FLASH_BF16_ROW_REL = 2e-2
 # bf16 residual stream through 32 layers), the skipped-tile kernel above
 # 2.96e-2 (PERF.md, PR 13).
 LM_LOGIT_REL_L2 = 2.5e-2
+
+# training (phase 4c).  yi-6b's training state is 16 bytes a parameter
+# (bf16 weight 2 + float32 master 4 + m 4 + v 4 + bf16 gradient 2): 5.80 B
+# parameters need 92.8 GB, more than the card holds, so the main training
+# path keeps the full width and cuts the depth to 16 of the 32 layers
+# (3.03 B parameters, 48.5 GB of state, about 30 GB left for activations
+# under per-block recompute).  Full depth needs the optimizer state
+# sharded over several cards.
+STATE_BYTES_PER_PARAM = 16
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 2, 2048, 6
+TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "train_ckpt")
+# card against CPU, float32 smoke config, 3 steps under the default OptCfg
+# (warmup 100: the parameters move by about 3e-6 a step)
+CARD_CPU_LOSS_RTOL, CARD_CPU_PARAM_ATOL = 1e-4, 1e-5
+# the compressed step: full width, 4 layers, 2 pods of B = 2, S = 512
+COMP_LAYERS, COMP_BATCH, COMP_SEQ, COMP_STEPS = 4, 4, 512, 4
+# the GPipe forward: 8 full-width blocks, 2 stages, 4 microbatches
+PP_LAYERS, PP_STAGES, PP_MICRO, PP_SEQ = 8, 2, 4, 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -1702,14 +1745,16 @@ def _lm_prefill():
     from repro_torch.models import transformer
     cfg, flash, params, init_s, tokens = _lm_setup()
     n_params = sum(p.numel() for p in params.parameters())
-    (logits, aux), path = _run_path(
-        "lm_prefill", lambda: transformer.forward(params, flash, tokens),
-        {"flash_attention": cfg.n_layers})
+    with torch.no_grad():
+        (logits, aux), path = _run_path(
+            "lm_prefill", lambda: transformer.forward(params, flash, tokens),
+            {"flash_attention": cfg.n_layers})
     check(logits.shape == (1, LM_SEQ, cfg.vocab_padded),
           f"lm_prefill logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "lm_prefill: non-finite logits")
     t0 = time.perf_counter()
-    want, _ = transformer.forward(params, cfg, tokens)
+    with torch.no_grad():
+        want, _ = transformer.forward(params, cfg, tokens)
     torch.cuda.synchronize()
     einsum_s = time.perf_counter() - t0
     gate = _lm_readings(logits, want, tokens)
@@ -1779,8 +1824,9 @@ def _engine_against_forward(out, n=2):
         t0 = time.perf_counter()
         got = eng.prefill(p[None])[0]            # ends in a copy to the host
         step_ms = (time.perf_counter() - t0) * 1e3 / len(p)
-        want, _ = transformer.forward(params, cfg, torch.from_numpy(p[None])
-                                      .cuda())
+        with torch.no_grad():
+            want, _ = transformer.forward(params, cfg,
+                                          torch.from_numpy(p[None]).cuda())
         want = want[0, -1, :cfg.vocab_size].float().cpu()
         diff = (got - want).abs()
         check(bool((diff <= 0.55 + 0.05 * want.abs()).all()),
@@ -1874,6 +1920,428 @@ def phase_lm():
     torch.cuda.empty_cache()
     paths["lm_serve"] = _lm_serve()
     torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: training
+# ---------------------------------------------------------------------------
+
+def _mem_before(path):
+    """Print the card's free memory before a training path and zero the
+    peak counter."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  {path}: mem_get_info free {free / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB")
+    return free
+
+
+def _mem_after(path, reading):
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {path}: max_memory_allocated {peak / 1e9:.2f} GB")
+    reading["peak_bytes"] = peak
+    return reading
+
+
+def _events(n):
+    import torch
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def _param_sample(state):
+    """Clones of the embedding's first rows and one layer's ``wq``."""
+    return (state.params.embed[:8].detach().clone(),
+            state.params.blocks[-1].attn.wq[:8].detach().clone())
+
+
+def _changed(before, state):
+    import torch
+    return all(not torch.equal(a, b)
+               for a, b in zip(before, _param_sample(state)))
+
+
+def _profiled_step(step, state, batch, top=12):
+    """One more training step under ``torch.profiler``: its wall ms, the
+    device's busy ms (the kernels' device time summed) and the ``top`` ops
+    by the device time of the kernels each launched itself."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    busy = sum(dev_us(e) for e in avgs if e.device_type == DeviceType.CUDA)
+    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
+                 key=dev_us, reverse=True)
+    return {"wall_ms": wall * 1e3, "device_ms": busy / 1e3,
+            "top": [{"op": e.key, "device_ms": dev_us(e) / 1e3,
+                     "calls": e.count} for e in ops[:top]]}
+
+
+def _train_yi6b():
+    """yi-6b at full width and 16 of its 32 layers: 6 steps of
+    ``make_train_step`` at B = 2, S = 2,048, each split into forward +
+    backward and optimizer by CUDA events."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_synth
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.models import transformer
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    full_params = sum(p.numel() for p in
+                      transformer.LM(full, device="meta").parameters())
+    free = _mem_before("train_yi6b")
+    state = ts.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"  train_yi6b: {cfg.name} at full width, {TRAIN_LAYERS} of its "
+          f"{full.n_layers} layers (cut: {full_params / 1e9:.2f} B params x "
+          f"{STATE_BYTES_PER_PARAM} B of state = "
+          f"{full_params * STATE_BYTES_PER_PARAM / 1e9:.1f} GB exceeds the "
+          f"card); {n_params / 1e9:.3f} B params, bf16 weights, float32 "
+          f"master / m / v, remat {cfg.parallel.remat!r}")
+    step = ts.make_train_step(cfg, opt.OptCfg(warmup_steps=2))
+    data = lm_synth.LMDataCfg(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=SEED)
+    before = _param_sample(state)
+
+    def run():
+        rows = []
+        for i in range(TRAIN_STEPS):
+            batch = lm_synth.batch_at(data, i)
+            e0, e1, e2 = _events(3)
+            t0 = time.perf_counter()
+            e0.record()
+            grads, metrics = step.grads(state, batch)
+            e1.record()
+            step.update(state, grads, metrics)
+            e2.record()
+            del grads
+            e2.synchronize()
+            rows.append({"step_s": e0.elapsed_time(e2) / 1e3,
+                         "fwd_bwd_s": e0.elapsed_time(e1) / 1e3,
+                         "optimizer_s": e1.elapsed_time(e2) / 1e3,
+                         "host_s": time.perf_counter() - t0,
+                         "loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "lr": float(metrics["lr"])})
+        return rows, _profiled_step(step, state,
+                                    lm_synth.batch_at(data, TRAIN_STEPS))
+
+    (rows, prof), path = _run_path("train_yi6b", run, {})
+    losses = [r["loss"] for r in rows]
+    check(all(np.isfinite(losses)), f"train_yi6b: losses {losses}")
+    check(losses[-1] < losses[0], f"train_yi6b: loss did not fall {losses}")
+    check(all(np.isfinite(r["grad_norm"]) for r in rows),
+          "train_yi6b: non-finite grad_norm")
+    check(_changed(before, state), "train_yi6b: parameters did not change")
+    tail = rows[1:]
+    med = {k: float(np.median([r[k] for r in tail]))
+           for k in ("step_s", "fwd_bwd_s", "optimizer_s", "host_s")}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6 * n_params * tokens / med["step_s"] / BF16_OPS_PER_S
+    print(f"  train_yi6b: losses {[round(x, 4) for x in losses]}; median of "
+          f"steps 2-{TRAIN_STEPS}: {med['step_s']:.4f} s a step "
+          f"(forward + backward {med['fwd_bwd_s']:.4f} s, optimizer "
+          f"{med['optimizer_s']:.4f} s; host clock {med['host_s']:.4f} s), "
+          f"{tokens / med['step_s']:.0f} tokens/s, model FLOP/s "
+          f"6 x params x tokens = {share:.4f} of the bf16 dense peak "
+          f"(989 TFLOP/s; the recompute not counted)")
+    print(f"  train_yi6b: one more step under torch.profiler: device busy "
+          f"{prof['device_ms']:.1f} ms of {prof['wall_ms']:.1f} ms; by op "
+          f"(self device ms, calls): " + "; ".join(
+              f"{r['op']} {r['device_ms']:.1f} ({r['calls']})"
+              for r in prof["top"]))
+    path.update({"arch": cfg.name, "layers": TRAIN_LAYERS,
+                 "layers_full": full.n_layers, "params": n_params,
+                 "params_full": full_params, "profile": prof,
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": rows,
+                 "median_step_s": med["step_s"],
+                 "median_fwd_bwd_s": med["fwd_bwd_s"],
+                 "median_optimizer_s": med["optimizer_s"],
+                 "median_host_s": med["host_s"],
+                 "tokens_per_s": tokens / med["step_s"],
+                 "bf16_peak_share": share, "free_bytes_before": free})
+    del state, step
+    return _mem_after("train_yi6b", path)
+
+
+def _train_card_vs_cpu():
+    """The float32 smoke config's train step, 3 steps from the same state
+    (drawn on the CPU, carried to the card through a checkpoint) and
+    batches, on the card and on the CPU."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_synth
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(get_config(LM_ARCH, smoke=True),
+                              dtype="float32")
+    free = _mem_before("train_card_vs_cpu")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    cpu = ts.init_state(cfg, torch.Generator().manual_seed(SEED))
+    ck = Checkpointer(TRAIN_CKPT_DIR)
+    ck.save(0, cpu, {"step": 0})
+    card, _ = ck.restore(cpu, device="cuda")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    data = lm_synth.LMDataCfg(vocab_size=cfg.vocab_size, seq_len=64,
+                              global_batch=4, seed=SEED)
+    step = ts.make_train_step(cfg)
+
+    def run():
+        out = []
+        for i in range(3):
+            batch = lm_synth.batch_at(data, i)
+            _, m_card = step(card, batch)
+            _, m_cpu = step(cpu, batch)
+            out.append((float(m_card["loss"]), float(m_cpu["loss"])))
+        return out
+
+    losses, path = _run_path("train_card_vs_cpu", run, {})
+    rel = max(abs(a - b) / abs(b) for a, b in losses)
+    p_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(opt.tree_leaves(card.params),
+                                 opt.tree_leaves(cpu.params)))
+    print(f"  train_card_vs_cpu: losses (card, cpu) {losses}; largest "
+          f"relative loss difference {rel:.3e} (limit {CARD_CPU_LOSS_RTOL}), "
+          f"largest parameter difference {p_diff:.3e} (limit "
+          f"{CARD_CPU_PARAM_ATOL})")
+    check(rel <= CARD_CPU_LOSS_RTOL, f"train_card_vs_cpu: losses {losses}")
+    check(p_diff <= CARD_CPU_PARAM_ATOL,
+          f"train_card_vs_cpu: parameters differ by {p_diff}")
+    path.update({"losses": losses, "loss_rel_diff": rel,
+                 "param_max_abs_diff": p_diff, "free_bytes_before": free})
+    return _mem_after("train_card_vs_cpu", path)
+
+
+def _train_loop():
+    """``repro_torch.launch.train.train`` on the card, smoke config, with a
+    failure injected once at step 17: the loop restores step 15's
+    checkpoint and finishes."""
+    import shutil
+    from repro_torch.launch import train as launch_train
+    free = _mem_before("train_loop")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    fired = []
+
+    def injector(step):
+        if step == 17 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    try:
+        (state, report, wall), path = _run_path(
+            "train_loop", lambda: launch_train.train(
+                LM_ARCH, smoke=True, steps=25, batch=4, seq=32,
+                ckpt_dir=TRAIN_CKPT_DIR, ckpt_every=5,
+                fault_injector=injector), {})
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    losses = report.losses
+    check(report.restarts == 1, f"train_loop: {report.restarts} restarts")
+    check(report.final_step == 25, f"train_loop: final step "
+          f"{report.final_step}")
+    check(losses[-1] < losses[0], f"train_loop: loss did not fall {losses}")
+    check(state.step.device.type == "cuda", "train_loop: state not on the card")
+    print(f"  train_loop: 25 steps, {report.restarts} restart (injected at "
+          f"step 17, resumed from step 15), loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {wall:.3f} s in the loop")
+    path.update({"restarts": report.restarts, "final_step": report.final_step,
+                 "first_loss": losses[0], "last_loss": losses[-1],
+                 "loop_s": wall, "free_bytes_before": free})
+    return _mem_after("train_loop", path)
+
+
+def _train_compressed():
+    """``make_train_step_compressed`` on two pods of the card: yi-6b at
+    full width, 4 layers, B = 4, S = 512, 4 steps on one batch (as the
+    reference's ``tests/test_grad_compress.py``), each split into the
+    per-pod gradients, the quantize/reduce and the optimizer."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_synth
+    from repro_torch.dist import LocalMesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    class Wire(LocalMesh):
+        """The local mesh, recording the dtype of every sum it makes."""
+        payload = []
+
+        def psum(self, x, axis):
+            out = super().psum(x, axis)
+            self.payload.append((x.dtype, out.dtype))
+            return out
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=COMP_LAYERS)
+    free = _mem_before("train_compressed")
+    data = lm_synth.LMDataCfg(vocab_size=cfg.vocab_size, seq_len=COMP_SEQ,
+                              global_batch=COMP_BATCH, seed=SEED)
+    ocfg = opt.OptCfg(warmup_steps=2)
+    state = ts.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), compressed=True)
+    n_leaves = len(opt.tree_leaves(state.params))
+    mesh = Wire((2,), ("pod",))
+    step = ts.make_train_step_compressed(cfg, mesh, ocfg)
+
+    batch = lm_synth.batch_at(data, 0)   # one batch, as test_grad_compress
+
+    def run():
+        rows = []
+        for _ in range(COMP_STEPS):
+            e0, e1, e2, e3 = _events(4)
+            e0.record()
+            pod = step.grads(state, batch)
+            e1.record()
+            mean, metrics = step.reduce(state, *pod)
+            e2.record()
+            step.update(state, mean, metrics)
+            e3.record()
+            del pod, mean
+            e3.synchronize()
+            rows.append({"step_s": e0.elapsed_time(e3) / 1e3,
+                         "pod_grads_s": e0.elapsed_time(e1) / 1e3,
+                         "reduce_s": e1.elapsed_time(e2) / 1e3,
+                         "optimizer_s": e2.elapsed_time(e3) / 1e3,
+                         "loss": float(metrics["loss"])})
+        return rows
+
+    rows, path = _run_path("train_compressed", run, {})
+    del state, step
+    losses = [r["loss"] for r in rows]
+    int8 = [p for p in Wire.payload if p[0] == torch.int8]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train_compressed: losses {losses}")
+    check(len(int8) == COMP_STEPS * n_leaves and all(
+        o == torch.int8 for _, o in int8), f"train_compressed: "
+          f"{len(int8)} int8 sums for {COMP_STEPS} x {n_leaves} leaves")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = ts.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    _, mb = ts.make_train_step(cfg, ocfg)(base, batch)
+    base_loss = float(mb["loss"])
+    del base
+    rel = abs(base_loss - losses[0]) / losses[0]
+    check(rel < 0.02, f"train_compressed: first loss {losses[0]} against "
+          f"the baseline step's {base_loss}")
+    med = {k: float(np.median([r[k] for r in rows[1:]]))
+           for k in ("step_s", "pod_grads_s", "reduce_s", "optimizer_s")}
+    print(f"  train_compressed: {cfg.name} full width, {COMP_LAYERS} layers, "
+          f"2 pods of B = {COMP_BATCH // 2}, S = {COMP_SEQ}; losses "
+          f"{[round(x, 4) for x in losses]}, first within {rel:.2e} of the "
+          f"baseline step's {base_loss:.4f}; {len(int8)} int8 sums; median "
+          f"of steps 2-{COMP_STEPS}: {med['step_s']:.4f} s a step (per-pod "
+          f"gradients {med['pod_grads_s']:.4f} s, quantize/reduce "
+          f"{med['reduce_s']:.4f} s, optimizer {med['optimizer_s']:.4f} s)")
+    path.update({"layers": COMP_LAYERS, "batch": COMP_BATCH, "seq": COMP_SEQ,
+                 "steps": rows, "baseline_first_loss": base_loss,
+                 "first_loss_rel_to_baseline": rel,
+                 "int8_sums": len(int8), "median_step_s": med["step_s"],
+                 "median_pod_grads_s": med["pod_grads_s"],
+                 "median_reduce_s": med["reduce_s"],
+                 "median_optimizer_s": med["optimizer_s"],
+                 "free_bytes_before": free})
+    return _mem_after("train_compressed", path)
+
+
+def _stacked(tree):
+    """A reference tree of blocks with each layer stack as one (L, ...)
+    tensor on the card."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return torch.stack(tree.parts)
+
+
+def _namespace(tree):
+    """A nested dict of tensors as attribute-access objects, the shape
+    ``transformer._block_apply`` reads a block's parameters in."""
+    import types
+    if isinstance(tree, dict):
+        return types.SimpleNamespace(**{k: _namespace(v)
+                                        for k, v in tree.items()})
+    return tree
+
+
+def _pipeline_fwd():
+    """``make_pp_forward`` over yi-6b's full-width blocks (8 layers, 2
+    stages, 4 microbatches of 1 x 1,024 tokens) on two pods of the card,
+    against the 8 blocks applied in order."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import LocalMesh
+    from repro_torch.dist.pipeline import bubble_fraction, make_pp_forward
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=PP_LAYERS)
+    free = _mem_before("pipeline_fwd")
+    lm = transformer.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(SEED))
+    params = _stacked(lm.reference_tree()["blocks"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn((PP_MICRO, 1, PP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    positions = torch.arange(PP_SEQ, device="cuda").expand(1, PP_SEQ)
+
+    def block(lp, h):
+        return transformer._block_apply(_namespace(lp), h, cfg, positions)
+
+    fwd = make_pp_forward(block, PP_LAYERS, PP_STAGES, PP_MICRO,
+                          LocalMesh((PP_STAGES,), ("pod",)),
+                          (None, None, None, None))
+    with torch.inference_mode():
+        out, path = _run_path("pipeline_fwd", lambda: fwd(params, x), {})
+        want = x
+        for blk in lm.blocks:           # the LM's own blocks, in order
+            want = torch.stack([transformer._block_apply(
+                blk, want[m], cfg, positions) for m in range(PP_MICRO)])
+    del lm, params
+    got = out[(PP_STAGES - 1) * PP_MICRO:].float()
+    want = want.float()
+    check(out.shape == (PP_STAGES * PP_MICRO, *x.shape[1:]),
+          f"pipeline_fwd: output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(got).all()), "pipeline_fwd: non-finite")
+    rel = float((got - want).norm() / want.norm())
+    check(rel <= LM_LOGIT_REL_L2, f"pipeline_fwd: relative L2 {rel:.3e} "
+          f"against the blocks in order")
+    bubble = bubble_fraction(PP_STAGES, PP_MICRO)
+    print(f"  pipeline_fwd: {PP_LAYERS} full-width blocks, {PP_STAGES} "
+          f"stages x {PP_MICRO} microbatches of 1 x {PP_SEQ}; against the "
+          f"blocks in order: relative L2 {rel:.3e} (limit {LM_LOGIT_REL_L2}),"
+          f" max |diff| {float((got - want).abs().max()):.4f}; "
+          f"{path['seconds']:.4f} s, bubble_fraction {bubble}")
+    path.update({"layers": PP_LAYERS, "stages": PP_STAGES,
+                 "micro": PP_MICRO, "seq": PP_SEQ, "rel_l2": rel,
+                 "bubble_fraction": bubble, "free_bytes_before": free})
+    return _mem_after("pipeline_fwd", path)
+
+
+def phase_train():
+    """Phase 4c: the training paths, after phase 4b's weights are gone."""
+    paths = {"train_yi6b": _train_yi6b()}
+    paths["train_card_vs_cpu"] = _train_card_vs_cpu()
+    paths["train_loop"] = _train_loop()
+    paths["train_compressed"] = _train_compressed()
+    paths["pipeline_fwd"] = _pipeline_fwd()
     return paths
 
 
@@ -2295,7 +2763,10 @@ def main() -> int:
         app_paths, encode_shapes = phase_app()
         print("phase 4b: the dense LM at full width")
         lm_paths = phase_lm()
-        paths = {**run["paths"], **tcam_paths, **app_paths, **lm_paths}
+        print("phase 4c: training")
+        train_paths = phase_train()
+        paths = {**run["paths"], **tcam_paths, **app_paths, **lm_paths,
+                 **train_paths}
         print("phase 5: timing")
         rows, costs = phase_timing({**run, "paths": paths}, err)
         rows += phase_timing_app(paths, encode_shapes, err)

@@ -1,8 +1,8 @@
 """``repro_torch.checkpoint`` — durable, mesh-agnostic checkpoints.
 
-Port of :mod:`repro.checkpoint`'s ``checkpointer`` and ``elastic``, in the
-reference's on-disk format (npy leaves + a JSON manifest, bf16 as uint16).
-Its ``fault_tolerance`` module comes with training.
+Port of :mod:`repro.checkpoint`'s ``checkpointer``, ``elastic`` and
+``fault_tolerance`` (the restartable training loop), in the reference's
+on-disk format (npy leaves + a JSON manifest, bf16 as uint16).
 """
 
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: F401

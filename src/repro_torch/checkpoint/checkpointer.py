@@ -34,6 +34,19 @@ fields of :class:`~repro_torch.core.am.AMTable` and
 optional plane is absent.  ``restore`` is strict by default: a checkpoint
 leaf with no matching leaf in the restore template raises rather than
 silently dropping saved state.
+
+A training state (:class:`~repro_torch.train.train_step.TrainState`, its
+:class:`~repro_torch.train.optimizer.OptState`) is a tree node too, and
+an LM (:class:`~repro_torch.models.transformer.LM`: the weights, the
+master weights, the moments, the EF buffers) is walked as the
+reference's parameter tree: ``['embed']``, ``['final_norm']/['scale']``
+and, for a scanned uniform stack, ``['blocks']/['attn']/['wq']`` holding
+the (L, ...) stack of the layers' tensors
+(:meth:`~repro_torch.models.transformer.LM.reference_tree`).  Such a
+:class:`~repro_torch.models.layers.LayerStack` is stacked on the host
+copies a save makes, and a restore unstacks it on the host before each
+layer goes to the device, so no stacked copy of a layer's tensors exists
+on the card.
 """
 
 from __future__ import annotations
@@ -52,6 +65,8 @@ import torch
 from repro_torch.core import am
 from repro_torch.device import resolve_device
 from repro_torch.index import ivf
+from repro_torch.models import layers, transformer
+from repro_torch.train import optimizer, train_step
 
 BF16 = "bfloat16"
 
@@ -61,11 +76,15 @@ NODE_FIELDS = {
     am.AMTable: ("codes", "meta", "care"),
     ivf.IVFIndex: ("centroids", "slabs", "row_ids", "set_sizes",
                    "set_radius"),
+    train_step.TrainState: ("params", "opt", "step", "ef"),
+    optimizer.OptState: ("master", "m", "v", "count"),
 }
 
 
 def _children(tree) -> list[tuple[str, Any]] | None:
     """(key string, child) pairs of a tree node; None for a leaf."""
+    if isinstance(tree, transformer.LM):
+        return _children(tree.reference_tree())
     if isinstance(tree, dict):
         return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
     if isinstance(tree, (list, tuple)):
@@ -92,6 +111,14 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree,
     out = [tree_map_with_path(fn, x, is_leaf,
                               f"{_prefix}/{k}" if _prefix else k)
            for k, x in kids]
+    return _rebuild(tree, out)
+
+
+def _rebuild(tree, out: list):
+    """The node ``tree`` holding the children ``out`` (in the order
+    :func:`_children` gives them)."""
+    if isinstance(tree, transformer.LM):
+        return tree.with_reference_tree(_rebuild(tree.reference_tree(), out))
     if isinstance(tree, dict):
         return {k: v for k, v in zip(sorted(tree), out)}
     if isinstance(tree, (list, tuple)):
@@ -100,19 +127,28 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree,
                                                 out)))
 
 
-def leaves_with_paths(tree, is_leaf=None) -> list[tuple[str, Any]]:
+def leaves_with_paths(tree, is_leaf=None,
+                      _prefix: str = "") -> list[tuple[str, Any]]:
     """[(path, leaf)] in flattening order."""
-    out: list[tuple[str, Any]] = []
-    tree_map_with_path(lambda p, x: out.append((p, x)), tree, is_leaf)
-    return out
+    if tree is None:
+        return []
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
+    if kids is None:
+        return [(_prefix, tree)]
+    return [pair for k, x in kids for pair in leaves_with_paths(
+        x, is_leaf, f"{_prefix}/{k}" if _prefix else k)]
 
 
 def _to_host(x, copy: bool) -> tuple[np.ndarray, str]:
     """(host array as written to disk, logical dtype) of one leaf.
 
     ``copy`` makes the array independent of ``x`` even where ``x`` already
-    lives on the host.
+    lives on the host.  A :class:`~repro_torch.models.layers.LayerStack`
+    is stacked here, from its layers' host copies.
     """
+    if isinstance(x, layers.LayerStack):
+        parts = [_to_host(p, copy=False) for p in x.parts]
+        return np.stack([a for a, _ in parts]), parts[0][1]
     if isinstance(x, torch.Tensor):
         t = x.detach()
         bf16 = t.dtype == torch.bfloat16
@@ -291,6 +327,9 @@ class Checkpointer:
                     raise ValueError(
                         f"shape mismatch for {path}: ckpt {arr.shape} vs "
                         f"target {tuple(leaf.shape)}")
+                if isinstance(leaf, layers.LayerStack):  # unstacked on host
+                    return layers.LayerStack(
+                        _from_disk(a, entry["dtype"], dev) for a in arr)
                 return _from_disk(arr, entry["dtype"], dev)
 
             return tree_map_with_path(load, target), manifest["metadata"]

@@ -1,10 +1,11 @@
 """Carry state across from the JAX package as numpy arrays.
 
 A table's planes (codes, meta, care) are its state; an HDC model's are its
-projection and class hypervectors; an LM's are its parameter tree.  The
-reference hands them over as numpy arrays (``np.asarray(table.codes)``,
-``np.asarray(model.projection)``, ``jax.tree.map(np.asarray, params)`` and
-so on), so this module needs neither JAX nor the reference package.
+projection and class hypervectors; an LM's are its parameter tree, and a
+training run's its ``TrainState``.  The reference hands them over as numpy
+arrays (``np.asarray(table.codes)``, ``np.asarray(model.projection)``,
+``jax.tree.map(np.asarray, params)`` and so on), so this module needs
+neither JAX nor the reference package.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from repro_torch.configs.base import ModelCfg
 from repro_torch.core import am, hdc
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.train import optimizer, train_step
 
 
 def am_table_from_numpy(codes, *, bits: int, distance: str, meta=None,
@@ -74,18 +76,19 @@ def _flatten(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def lm_params_from_numpy(cfg: ModelCfg, params_np,
-                         device=None) -> transformer.LM:
+def lm_params_from_numpy(cfg: ModelCfg, params_np, device=None,
+                         dtype=None) -> transformer.LM:
     """A :class:`~repro_torch.models.transformer.LM` from the reference's
     parameter tree with numpy leaves, on ``device`` (default the GPU).
 
     The leading L axis of a scanned uniform stack (``params["blocks"]`` a
     dict of (L, ...) leaves) is unstacked into ``blocks.{i}``; a list of
     per-layer dicts maps one to one.  Every leaf keeps its dtype and values
-    bit for bit; names and shapes must match the port's modules exactly.
+    bit for bit; names and shapes must match the port's modules exactly,
+    and dtypes the LM's of ``dtype`` (default the config's).
     """
     dev = resolve_device(device)
-    model = transformer.LM(cfg, dev)
+    model = transformer.LM(cfg, dev, dtype)
     flat = dict(_flatten({k: v for k, v in params_np.items()
                           if k != "blocks"}))
     blocks = params_np["blocks"]
@@ -111,3 +114,33 @@ def lm_params_from_numpy(cfg: ModelCfg, params_np,
                              f"{own[name].dtype} {tuple(own[name].shape)}")
         own[name].copy_(t)
     return model
+
+
+def train_state_from_numpy(cfg: ModelCfg, state_np,
+                           device=None) -> train_step.TrainState:
+    """A :class:`~repro_torch.train.train_step.TrainState` from the
+    reference's ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``), on ``device`` (default the GPU).
+
+    The weights (with gradients on), the float32 master weights, both
+    moments, the count, the step and the EF buffers (when the state has
+    them) are carried bit for bit, each parameter tree unstacked as
+    :func:`lm_params_from_numpy` unstacks one.
+    """
+    dev = resolve_device(device)
+
+    def f32_tree(tree):
+        return lm_params_from_numpy(cfg, tree, dev, torch.float32)
+
+    def scalar(x):
+        return torch.from_numpy(np.array(x, np.int32)).to(dev)
+
+    params = lm_params_from_numpy(cfg, state_np.params, dev)
+    params.requires_grad_(True)
+    o = state_np.opt
+    return train_step.TrainState(
+        params=params,
+        opt=optimizer.OptState(master=f32_tree(o.master), m=f32_tree(o.m),
+                               v=f32_tree(o.v), count=scalar(o.count)),
+        step=scalar(state_np.step),
+        ef=None if state_np.ef is None else f32_tree(state_np.ef))

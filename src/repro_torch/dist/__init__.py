@@ -11,9 +11,12 @@ Port of the parts of :mod:`repro.dist` the multi-bank search needs:
   (``am_table``, ``am_queries``, ``am_queries_dp``, ``am_meta``,
   ``am_index``) as tuples of axis names.
 
+* :mod:`repro_torch.dist.pipeline` — the GPipe forward over the ``pod``
+  axis (``make_pp_forward``, ``bubble_fraction``).
+
 Not here: :mod:`repro.dist.compat` bridges one JAX release's mesh API to
 another's and has no PyTorch counterpart; ``constrain`` and the LM roles
-of ``Rules`` come with training, as does :mod:`repro.dist.pipeline`.
+of ``Rules`` come with multi-card training (ROADMAP item 11c).
 """
 
 from repro_torch.dist.mesh import LocalMesh, ProcessGroupMesh  # noqa: F401

@@ -122,8 +122,10 @@ class LocalMesh(_Mesh):
         return _expand(x, b)[index]
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum over the banks, replicated."""
-        return _expand(x, self.shape[axis]).sum(dim=0, keepdim=True)
+        """The sum over the banks, replicated, in ``x``'s dtype (as an
+        all-reduce keeps it: an int8 sum wraps as int8)."""
+        return _expand(x, self.shape[axis]).sum(dim=0, keepdim=True,
+                                               dtype=x.dtype)
 
     def batch_part(self, axes, n: int) -> tuple[int, int]:
         """The rows of an ``n``-row batch split over ``axes`` that this

@@ -16,7 +16,8 @@ the reference hands them to ``shard_map``.
   ``am_state``       the spec tree of one durable table state
 
 The LM roles (``act_resid``, ``w2``, ``embed``, ...) and the ``fsdp`` and
-``resid_seq_shard`` fields they read come with training.
+``resid_seq_shard`` fields they read come with multi-card training
+(ROADMAP item 11c).
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Launch drivers of the port: :mod:`repro_torch.launch.serve`."""
+"""Launch drivers of the port: :mod:`repro_torch.launch.serve` and
+:mod:`repro_torch.launch.train`."""

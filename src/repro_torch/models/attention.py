@@ -104,10 +104,20 @@ def _softmax_lp(scores: torch.Tensor) -> torch.Tensor:
 
 def full_attention(params: Attention, x: torch.Tensor, cfg: ModelCfg,
                    positions: torch.Tensor) -> torch.Tensor:
-    """Causal full self-attention over (B, S, D) — training / prefill."""
+    """Causal full self-attention over (B, S, D) — training / prefill.
+
+    ``attn_impl="flash"`` is forward-only: with grad enabled and an input
+    that requires grad it raises :class:`NotImplementedError`.
+    """
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cfg.parallel.attn_impl == "flash":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "attn_impl='flash' is forward-only: the reference's Pallas "
+                "flash kernel has no backward, so training runs "
+                "attn_impl='einsum', as the reference does")
         from repro_torch.kernels.flash_attention import ops as fl_ops
         out = fl_ops.flash_attention_bshd(q, k, v, causal=True)
         return out.reshape(b, s, -1) @ params.wo

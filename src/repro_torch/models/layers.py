@@ -8,12 +8,57 @@ belong to the sharding slice and are not here.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that takes no gradient: serving builds no autograd
+    graph.  Training turns ``requires_grad`` on for its own weights."""
     return nn.Parameter(t, requires_grad=False)
+
+
+class LayerStack:
+    """One leaf of the reference's parameter tree made of per-layer
+    tensors: what the reference holds as one (L, ...) array of a scanned
+    layer stack.  Nothing is stacked on the device; ``shape`` and
+    ``ndim`` are those of the stacked leaf."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts), *self.parts[0].shape)
+
+    @property
+    def ndim(self) -> int:
+        return 1 + self.parts[0].ndim
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+
+def module_like(module: nn.Module, tensors: dict) -> nn.Module:
+    """A structural copy of ``module`` whose parameters are ``tensors``
+    (by ``named_parameters()`` name), each keeping the ``requires_grad`` of
+    the one it replaces.  Nothing of ``module``'s own storage is copied.
+    """
+    new = copy.copy(module)
+    new._parameters = {
+        name: None if p is None else nn.Parameter(tensors[name],
+                                                  p.requires_grad)
+        for name, p in module._parameters.items()}
+    new._modules = {}
+    for name, sub in module._modules.items():
+        pre = name + "."
+        new._modules[name] = None if sub is None else module_like(
+            sub, {k[len(pre):]: v for k, v in tensors.items()
+                  if k.startswith(pre)})
+    return new
 
 
 # ---------------------------------------------------------------------------

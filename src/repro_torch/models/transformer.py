@@ -5,8 +5,16 @@ Port of :mod:`repro.models.transformer` for ``"attn"`` blocks with a dense
 SwiGLU MLP, on one device.  The reference stacks a uniform stack on a
 leading L axis and scans it; here the layers are an ``nn.ModuleList``
 walked by a Python loop, and only the decode cache keeps the stacked
-(L, ...) layout.  The other block kinds, MoE, MLA and the stub frontends
-raise :class:`NotImplementedError` naming the ROADMAP item that ports them.
+(L, ...) layout (a training checkpoint stacks the layers on the host, see
+:mod:`repro_torch.checkpoint.checkpointer`).  The other block kinds, MoE,
+MLA and the stub frontends raise :class:`NotImplementedError` naming the
+ROADMAP item that ports them.
+
+``forward`` is differentiable: parameters are frozen as they are made, so
+serving builds no autograd graph, and training turns ``requires_grad`` on
+for its own weights (:func:`repro_torch.train.train_step.init_state`).
+With ``cfg.parallel.remat == "block"`` each layer is recomputed in the
+backward pass, as the reference wraps each layer in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.device import resolve_device
@@ -65,12 +74,14 @@ class LM(nn.Module):
     ``final_norm`` and, without tied embeddings, ``lm_head`` (d,
     vocab_padded).  Allocated uninitialised: :func:`init_params` draws
     them, :func:`repro_torch.convert.lm_params_from_numpy` copies them in.
+    ``dtype`` (default the config's) is that of every weight but the
+    float32 norm scales; the optimizer's float32 copies are LMs too.
     """
 
-    def __init__(self, cfg: ModelCfg, device=None):
+    def __init__(self, cfg: ModelCfg, device=None, dtype=None):
         super().__init__()
         check_supported(cfg)
-        dtype = model_dtype(cfg)
+        dtype = model_dtype(cfg) if dtype is None else dtype
         kw = {"dtype": dtype, "device": device}
         self.embed = layers.frozen(torch.empty(
             (cfg.vocab_padded, cfg.d_model), **kw))
@@ -80,10 +91,68 @@ class LM(nn.Module):
                 (cfg.d_model, cfg.vocab_padded), **kw))
         self.blocks = nn.ModuleList(Block(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
+        # the reference stacks a scanned uniform stack on a leading L axis
+        self.stacked = cfg.scan_layers and cfg.uniform_pattern
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def reference_tree(self) -> dict:
+        """The reference's parameter tree of this LM, holding its tensors
+        (no copies): ``{"embed", "final_norm": {"scale"}, "blocks"}`` (and
+        ``"lm_head"``), the blocks of a scanned uniform stack as
+        :class:`~repro_torch.models.layers.LayerStack` leaves
+        (``blocks["attn"]["wq"]`` the layers' ``wq``), else a list of
+        per-layer trees."""
+        own = dict(self.named_parameters())
+        tree = _nest({n: x for n, x in own.items()
+                      if not n.startswith("blocks.")})
+        per_layer = [dict(b.named_parameters()) for b in self.blocks]
+        if self.stacked:
+            tree["blocks"] = _nest({
+                n: layers.LayerStack(layer[n] for layer in per_layer)
+                for n in per_layer[0]})
+        else:
+            tree["blocks"] = [_nest(layer) for layer in per_layer]
+        return tree
+
+    def with_reference_tree(self, tree: dict) -> "LM":
+        """An LM of this one's structure holding the tensors of ``tree``
+        (shaped as :meth:`reference_tree` gives it)."""
+        flat = dict(_dotted({k: v for k, v in tree.items()
+                             if k != "blocks"}))
+        blocks = tree["blocks"]
+        if isinstance(blocks, dict):
+            for name, stack in _dotted(blocks):
+                for i, x in enumerate(stack.parts):
+                    flat[f"blocks.{i}.{name}"] = x
+        else:
+            for i, layer in enumerate(blocks):
+                flat.update((f"blocks.{i}.{n}", x)
+                            for n, x in _dotted(layer))
+        return layers.module_like(self, flat)
+
+
+def _nest(flat: dict) -> dict:
+    """``{"attn.wq": x}`` -> ``{"attn": {"wq": x}}``."""
+    out: dict = {}
+    for name, x in flat.items():
+        *heads, last = name.split(".")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = x
+    return out
+
+
+def _dotted(tree: dict, prefix: str = ""):
+    """The inverse of :func:`_nest`: (dotted name, leaf) pairs."""
+    for k, x in tree.items():
+        if isinstance(x, dict):
+            yield from _dotted(x, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", x
 
 
 def init_params(cfg: ModelCfg, generator: torch.Generator) -> LM:
@@ -122,19 +191,25 @@ def _head(params: LM, cfg: ModelCfg) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
-@torch.no_grad()
 def forward(params: LM, cfg: ModelCfg, tokens) -> tuple[torch.Tensor,
                                                           torch.Tensor]:
     """Full forward pass -> (logits (B,S,vocab_padded), aux loss scalar).
 
-    The dense family has no auxiliary loss: aux is a float32 zero.
+    The dense family has no auxiliary loss: aux is a float32 zero.  Where
+    grad is enabled and ``cfg.parallel.remat == "block"``, each layer's
+    activations are recomputed in the backward pass.
     """
     tokens = torch.as_tensor(tokens, device=params.device).long()
     x = params.embed[tokens].to(model_dtype(cfg))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = cfg.parallel.remat == "block" and torch.is_grad_enabled()
     for blk in params.blocks:
-        x = _block_apply(blk, x, cfg, positions)
+        if remat:
+            x = _checkpoint.checkpoint(_block_apply, blk, x, cfg, positions,
+                                       use_reentrant=False)
+        else:
+            x = _block_apply(blk, x, cfg, positions)
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

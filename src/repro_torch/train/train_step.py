@@ -1,0 +1,217 @@
+"""Train step: loss, grads, optimizer application, and the compressed
+cross-pod gradient all-reduce variant.
+
+Port of :mod:`repro.train.train_step` on one device, or one pod a rank.
+
+Baseline path (:func:`make_train_step`): the loss and its gradients by
+autograd, then :func:`repro_torch.train.optimizer.apply`.
+
+Compressed path (:func:`make_train_step_compressed`, a mesh with a
+``pod`` axis): each pod computes the gradients of its contiguous slice of
+the batch, int8-quantizes them against the shared error-feedback buffer
+and sums the int8 codes across pods (an int8 all-reduce on a
+:class:`~repro_torch.dist.ProcessGroupMesh`), with the quantization error
+recycled into the next step.  On a :class:`~repro_torch.dist.LocalMesh`
+the pods run one after the other on one device, and their gradients are
+stacked one leaf at a time.
+
+A step updates its state in place and returns it: at full width the
+state fills most of the card and cannot be held twice.  The sharding
+specs of the reference (``state_specs``) come with multi-card training.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelCfg
+from repro_torch.models import transformer
+from repro_torch.train import optimizer as opt
+
+AUX_LOSS_WEIGHT = 0.01
+POD_AXIS = "pod"
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any             # transformer.LM, requires_grad on
+    opt: opt.OptState
+    step: torch.Tensor
+    ef: Any = None          # error-feedback buffers (compressed mode only)
+
+
+def init_state(cfg: ModelCfg, generator: torch.Generator,
+               compressed: bool = False) -> TrainState:
+    """Weights drawn from ``generator`` onto its device (as
+    :func:`~repro_torch.models.transformer.init_params`), with gradients
+    on, their optimizer state, step 0 and, when ``compressed``, zero
+    error-feedback buffers."""
+    params = transformer.init_params(cfg, generator)
+    params.requires_grad_(True)
+    ef = opt.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                      params) if compressed else None
+    return TrainState(params=params, opt=opt.init(params),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=generator.device), ef=ef)
+
+
+def to_device(batch: dict, device) -> dict:
+    """A batch of numpy arrays or tensors as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def loss_fn(params, cfg: ModelCfg, batch) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy (fp32 logits path), plus the aux loss.
+
+    Returns (loss + AUX_LOSS_WEIGHT * aux, metrics); metrics ``loss``,
+    ``aux`` and ``tokens`` are 0-d tensors.
+    """
+    logits, aux = transformer.forward(params, cfg, batch["tokens"])
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    # stub-frontend prefixes are not scored
+    prefix = logits.shape[1] - labels.shape[1]
+    logits = logits[:, prefix:].float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else torch.as_tensor(mask, device=nll.device))
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    metrics = {"loss": loss.detach(), "aux": aux.detach(),
+               "tokens": torch.sum(mask)}
+    return loss + AUX_LOSS_WEIGHT * aux, metrics
+
+
+def _grads(params, cfg: ModelCfg, batch):
+    """(gradients as the list of ``params``' leaves, metrics)."""
+    total, metrics = loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(total, opt.tree_leaves(params))
+    return list(grads), metrics
+
+
+def _update(opt_cfg: opt.OptCfg, state: TrainState, grads, metrics):
+    _, state.opt, stats = opt.apply(opt_cfg, state.opt, grads, state.params)
+    metrics.update(stats)
+    state.step.add_(1)
+    return state, metrics
+
+
+class TrainStep:
+    """``(state, batch) -> (state, metrics)``, in two halves that a caller
+    may also run apart (to time them): :meth:`grads` and :meth:`update`."""
+
+    def __init__(self, cfg: ModelCfg, opt_cfg: opt.OptCfg):
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+
+    def grads(self, state: TrainState, batch):
+        """(gradients, metrics) of ``batch`` at ``state``'s weights."""
+        return _grads(state.params, self.cfg,
+                      to_device(batch, state.step.device))
+
+    def update(self, state: TrainState, grads, metrics):
+        """Apply ``grads``: the state, updated in place, and the metrics
+        with ``grad_norm`` and ``lr`` added."""
+        return _update(self.opt_cfg, state, grads, metrics)
+
+    def __call__(self, state: TrainState, batch):
+        return self.update(state, *self.grads(state, batch))
+
+
+def make_train_step(cfg: ModelCfg, opt_cfg: opt.OptCfg = opt.OptCfg()
+                    ) -> TrainStep:
+    """Baseline train step: (state, batch) -> (state, metrics)."""
+    return TrainStep(cfg, opt_cfg)
+
+
+class CompressedTrainStep(TrainStep):
+    """The compressed step, in three parts: :meth:`grads` (each held pod's
+    gradients of its batch slice), :meth:`reduce` (quantize, sum the int8
+    codes across pods, share the error feedback) and :meth:`update`."""
+
+    def __init__(self, cfg: ModelCfg, mesh, opt_cfg: opt.OptCfg):
+        if POD_AXIS not in mesh.axis_names:
+            raise ValueError(f"compressed DP needs a {POD_AXIS!r} axis; "
+                             f"mesh axes {mesh.axis_names}")
+        super().__init__(cfg, opt_cfg)
+        self.mesh = mesh
+        self.n_pods = mesh.shape[POD_AXIS]
+        self.levels = max(127 // self.n_pods, 1)
+
+    def grads(self, state: TrainState, batch):
+        """([per held pod: its gradient list], [its metrics]).  Pod ``c``
+        takes rows ``[c * b, (c + 1) * b)`` of the batch, ``b`` the batch
+        over the pod count."""
+        batch = to_device(batch, state.step.device)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % self.n_pods:
+            raise ValueError(f"batch of {rows} rows does not split over "
+                             f"{self.n_pods} pods")
+        part = rows // self.n_pods
+        out = [_grads(state.params, self.cfg,
+                      {k: v[c * part:(c + 1) * part]
+                       for k, v in batch.items()})
+               for c in self.mesh.banks(POD_AXIS)]
+        return [g for g, _ in out], [m for _, m in out]
+
+    def _pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_gather(x, POD_AXIS).amax(dim=1)
+
+    def _pmean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.psum(x, POD_AXIS) / self.n_pods
+
+    def reduce(self, state: TrainState, pod_grads, pod_metrics):
+        """(mean gradients, pod-mean metrics); the EF buffers of ``state``
+        are updated in place.
+
+        Leaf by leaf of the reference's tree (one scale for all layers of
+        a stacked leaf, as the reference's): the held pods' gradients
+        stacked, plus the shared EF; ``scale = pmax(max|g + ef|) / levels
+        + 1e-12``; codes clipped to +-levels and summed across pods as
+        int8; the new EF is the pod mean of each pod's quantization error.
+        """
+        index = {id(x): i for i, x in
+                 enumerate(opt.tree_leaves(state.params))}
+        mean = [None] * len(index)
+        for (ps, _), (efs, _) in zip(opt.groups(state.params),
+                                     opt.groups(state.ef), strict=True):
+            idx = [index[id(p)] for p in ps]
+            gcs = []
+            for i, e in zip(idx, efs):
+                g = torch.stack([grads[i] for grads in pod_grads])
+                for grads in pod_grads:
+                    grads[i] = None
+                gcs.append(g.float() + e)
+                del g
+            amax = torch.stack([gc.reshape(gc.shape[0], -1).abs().amax(dim=1)
+                                for gc in gcs]).amax(dim=0)
+            scale = self._pmax(amax / self.levels + 1e-12)
+            for i, e, gc in zip(idx, efs, gcs):
+                s = scale.reshape((1,) * gc.ndim)
+                q = torch.clamp(torch.round(gc / s), -self.levels,
+                                self.levels).to(torch.int8)
+                total = self.mesh.psum(q, POD_AXIS)   # int8 on the wire
+                mean[i] = (total.float() * s / self.n_pods)[0]
+                e.copy_(self._pmean(gc - q.float() * s)[0])
+        metrics = {k: self._pmean(torch.stack([m[k] for m in pod_metrics]))[0]
+                   for k in pod_metrics[0]}
+        return mean, metrics
+
+    def __call__(self, state: TrainState, batch):
+        return self.update(state, *self.reduce(state,
+                                               *self.grads(state, batch)))
+
+
+def make_train_step_compressed(cfg: ModelCfg, mesh,
+                               opt_cfg: opt.OptCfg = opt.OptCfg()
+                               ) -> CompressedTrainStep:
+    """Hierarchical DP: per-pod grads, int8+EF sum across pods.
+
+    Requires a mesh with a ``pod`` axis.  Per-pod codes are clipped to
+    +-(127 // n_pods) so the elementwise int8 sum cannot overflow; the
+    state needs EF buffers (``init_state(..., compressed=True)``).
+    """
+    return CompressedTrainStep(cfg, mesh, opt_cfg)

@@ -37,7 +37,9 @@ from repro_torch.kernels.flash_attention import kernel as fl_kernel
 from repro_torch.kernels.flash_attention import ops as fl_ops
 from repro_torch.kernels.flash_attention import ref as fl_ref
 from repro_torch.kernels.mibo_mc import ref as mc_ref
+from repro_torch import convert
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer
 from repro_torch.serve import AMService
 from repro_torch.serve.engine import Engine
@@ -70,13 +72,17 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.dist.specs, repro_torch.launch.mesh\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
         "import repro_torch.checkpoint.elastic, repro_torch.serve.snapshot\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.data.lm_synth, repro_torch.dist.pipeline\n"
+        "import repro_torch.checkpoint.fault_tolerance\n"
+        "import repro_torch.launch.train\n"
         "sys.path.insert(0, ROOT)\n"
         "import torch_benchmarks.run, torch_benchmarks.common, chip_smoke\n"
         "import torch_benchmarks.bench_am_serve\n"
         "chip_smoke._kernel_modules()\n"
         "import runpy\n"
         "for ex in ('quickstart', 'hdc_classification', 'lpm_routing',\n"
-        "           'serve_am_cache'):\n"
+        "           'serve_am_cache', 'train_lm'):\n"
         "    runpy.run_path(ROOT + f'/torch_examples/{ex}.py', run_name='x')\n"
         "import io, json, tempfile\n"
         "h = runpy.run_path(ROOT + '/tests/harness/torch_replica_harness.py',"
@@ -128,6 +134,12 @@ def test_no_gpu_means_an_error_not_the_cpu(monkeypatch):
         Engine.create(cfg, cpu_model, batch=1, max_len=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--steps", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.train("yi-6b", True, 2, 2, 8, "unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.train_state_from_numpy(cfg, None)
     # asking for the CPU explicitly works
     assert am.make_table(codes, device="cpu").device.type == "cpu"
 
@@ -184,7 +196,9 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     flash = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, attn_impl="flash"))
     model = transformer.init_params(flash, torch.Generator())
-    transformer.forward(model, flash, torch.zeros((1, 8), dtype=torch.int64))
+    with torch.no_grad():
+        transformer.forward(model, flash, torch.zeros((1, 8),
+                                                      dtype=torch.int64))
     launch_serve.main(["--device", "cpu", "--requests", "2", "--max-new",
                        "2"])
     assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,

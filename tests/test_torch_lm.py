@@ -245,7 +245,8 @@ def test_forward_matches_reference(dtype, impl, mesh):
     p, model = _params(rcfg, cfg)
     tokens = _tokens(cfg, 2, 128)
     want, want_aux = _ref_forward(rcfg, p, jnp.asarray(tokens), mesh)
-    got, aux = transformer.forward(model, cfg, torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, aux = transformer.forward(model, cfg, torch.from_numpy(tokens))
     assert got.shape == (2, 128, cfg.vocab_padded)
     assert got.dtype == transformer.model_dtype(cfg)
     assert float(aux) == float(want_aux) == 0.0
@@ -260,7 +261,8 @@ def test_bf16_scores_forward_matches_reference(mesh):
     p, model = _params(rcfg, cfg)
     tokens = _tokens(cfg, 2, 32)
     want, _ = _ref_forward(rcfg, p, jnp.asarray(tokens), mesh)
-    got, _ = transformer.forward(model, cfg, torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, _ = transformer.forward(model, cfg, torch.from_numpy(tokens))
     np.testing.assert_allclose(_f32(got), _f32(want), **BF16)
     np.testing.assert_array_equal(_f32(got).argmax(-1), _f32(want).argmax(-1))
 
@@ -272,8 +274,9 @@ def test_flash_impl_matches_einsum_forward():
     _, flash_cfg = _cfgs(attn_impl="flash")
     model = transformer.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(_tokens(cfg, 1, 128))
-    want = _f32(transformer.forward(model, cfg, tokens)[0])
-    got = _f32(transformer.forward(model, flash_cfg, tokens)[0])
+    with torch.no_grad():
+        want = _f32(transformer.forward(model, cfg, tokens)[0])
+        got = _f32(transformer.forward(model, flash_cfg, tokens)[0])
     np.testing.assert_allclose(got, want, **BF16)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
@@ -287,9 +290,11 @@ def test_kv_weight_replication_exact_equivalence():
     m2 = transformer.init_params(cfg2, torch.Generator().manual_seed(0))
     assert m2.blocks[0].attn.wk.shape[1] == 2 * m1.blocks[0].attn.wk.shape[1]
     tokens = torch.from_numpy(_tokens(cfg, 2, 16))
-    np.testing.assert_allclose(_f32(transformer.forward(m2, cfg2, tokens)[0]),
-                               _f32(transformer.forward(m1, cfg, tokens)[0]),
-                               atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            _f32(transformer.forward(m2, cfg2, tokens)[0]),
+            _f32(transformer.forward(m1, cfg, tokens)[0]), atol=1e-5,
+            rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +359,8 @@ def test_decode_matches_forward_slice():
     cfg = get_config("yi_6b", smoke=True)
     model = transformer.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.from_numpy(_tokens(cfg, 2, 7))
-    want, _ = transformer.forward(model, cfg, toks)
+    with torch.no_grad():
+        want, _ = transformer.forward(model, cfg, toks)
     cache = transformer.init_cache(cfg, 2, 16, device="cpu")
     got = None
     for i in range(7):

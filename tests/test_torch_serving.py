@@ -117,7 +117,9 @@ def test_serve_engine_greedy_matches_forward():
     argmax of the forward logits at the last position."""
     cfg, params, eng = _setup(batch=2, max_len=32, seed=1)
     prompts = np.stack(_prompts(cfg, (6, 6), seed=2))
-    logits, _ = transformer.forward(params, cfg, torch.from_numpy(prompts))
+    with torch.no_grad():
+        logits, _ = transformer.forward(params, cfg,
+                                        torch.from_numpy(prompts))
     want = logits[:, -1, :cfg.vocab_size].float().argmax(-1)
     got = eng.prefill(prompts).argmax(-1)
     assert torch.equal(got, want)

@@ -180,3 +180,36 @@ def test_bench_am_serve_smoke_equals_reference(sweep, fields):
     if sweep == ("--snapshot",):
         for row in ours.values():
             assert {"restore_b4_ms", "recovery_b2_ms", "write_ms"} <= set(row)
+
+
+def _loss_fields(text):
+    """(loss start, loss end) of a ``train_lm.py`` run's output."""
+    line = next(l for l in text.splitlines() if l.startswith("loss: start="))
+    start, end = line.split()[1:3]
+    return float(start.split("=")[1]), float(end.split("=")[1])
+
+
+def test_train_lm_example_tracks_reference(tmp_path):
+    """``torch_examples/train_lm.py --steps 20`` against the reference's
+    ``examples/train_lm.py`` at the same settings (batch 8, seq 128, the
+    yi-6b smoke config, bitwise the same batches).  The packages draw
+    their weights from the same distributions but not the same streams,
+    so the fields are held to the spread of the draws: the start loss
+    within 10 % of the reference's (the port's seeds 0-11 start at
+    37.4-41.3, the reference at 38.41), and the share the loss falls
+    within 0.1 of the reference's (seeds 0-4: 0.23-0.32; the reference
+    0.25)."""
+    ours = _loss_fields(_run("torch_examples/train_lm.py", "--steps", "20",
+                             "--ckpt-dir", str(tmp_path / "port")))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "examples/train_lm.py", "--steps",
+                          "20", "--ckpt-dir", str(tmp_path / "ref")],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    ref = _loss_fields(out.stdout)
+    assert ours[1] < ours[0]
+    assert abs(ours[0] - ref[0]) <= 0.1 * ref[0], (ours, ref)
+    assert abs((1 - ours[1] / ours[0]) - (1 - ref[1] / ref[0])) <= 0.1, \
+        (ours, ref)
