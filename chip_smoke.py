@@ -5,7 +5,9 @@
 
 Drives the port's paths through the entry points a user calls, on the
 hand-written CUDA kernels, and checks them, in five phases; any failure
-exits non-zero without the final ``ok`` line:
+exits non-zero without the final ``ok`` line (a quicker call after a
+change to a model family: ``phase_device()``, ``phase_build()`` and
+``phase_families()`` alone):
 
 1. device and build: the card's name and power limit, then ``nvcc`` builds
    every kernel source of ``src/repro_torch/csrc`` for sm_90a, all at once
@@ -105,6 +107,37 @@ exits non-zero without the final ``ok`` line:
    ``pipeline_fwd`` runs ``make_pp_forward`` over 8 full-width blocks in 2
    stages of 4 microbatches of 1 x 1,024 tokens, held to the blocks
    applied in order (relative L2 at most ``LM_LOGIT_REL_L2``);
+4d. the other model families at full width and depth, weights drawn on
+   the card from the seed, phase 4c's state released first, each path
+   printing ``mem_get_info`` before it and the peak allocation after:
+   ``moe_mla_prefill`` runs deepseek-v2-lite-16b (27 layers, d 2,048,
+   MLA, 64 routed experts top-6 + 2 shared) at B = 1, S = 4,096 through
+   EP on ``LocalMesh((1,), ("model",))`` against the dense oracle on the
+   same weights: argmax agreement at 99 % or more end to end, and layer
+   by layer on the EP forward's own inputs each MoE block within
+   ``MOE_LAYER_REL_L2`` of the oracle (the two forwards' routes flip
+   apart through the depth, so their logits are printed, not gated);
+   ``moe_mla_serve`` runs ``launch.serve.main(["--arch",
+   "deepseek-v2-lite-16b", "--full"])``: decode on the absorbed latent
+   cache through EP, the AM cache in front (one ``cam_pack`` and one
+   ``cam_search_topk`` per lookup group), 6/6 answered, repeats from the
+   cache, greedy tokens of two prompts equal to the forward's argmax;
+   ``vlm_prefill`` runs pixtral-12b on the flash kernel (40 launches) over
+   256 stub patch embeddings + 3,840 tokens against the einsum forward on
+   the token positions (the ``lm_prefill`` gates), and each layer's flash
+   attention within ``FLASH_LAYER_REL_L2`` of einsum's on the same input;
+   ``hybrid_prefill`` runs recurrentgemma-2b at S = 4,096 (the chunked
+   local path), times the RG-LRU scan and holds it to the step-by-step
+   recurrence (``SCAN_REL_L2``), then decodes 64 tokens through the
+   engine against the forward; ``xlstm_train`` runs xlstm-125m's forward
+   at B = 4, S = 2,048, 6 train steps at S = 256 (losses finite and
+   falling) and 32 decoded tokens against the forward;
+   ``family_sweep_granite_moe`` and ``family_sweep_musicgen`` run
+   granite-moe-1b-a400m (EP on one bank) and musicgen-medium (256 stub
+   audio frames, dh 64) on the flash kernel at S = 1,024 against einsum
+   (24 and 48 launches) and decode 4 tokens against the forward.  A
+   decode is held by its greedy token and, but for MoE configs, by the
+   relative L2 of its logits (``LM_LOGIT_REL_L2``);
 5. each kernel held against its plain version and timed with CUDA events
    at the shapes its paths gave it, beside its bound, its plain version
    and a library call where one computes the same thing; ``hdc_encode``
@@ -116,7 +149,7 @@ Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
 3e-2 and each row at a relative L2 error of 2e-2), at dh = 8, at the
 prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
-head width.  Every path of phases 3, 3b, 3c, 3d and 4
+head width.  Every path of phases 3, 3b, 3c, 3d and 4 (4b-4d too)
 runs with the launch counts of every kernel set to 0 just before it and
 read just after, and must launch its kernels (phase 4c's none).
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
@@ -232,6 +265,31 @@ CARD_CPU_LOSS_RTOL, CARD_CPU_PARAM_ATOL = 1e-4, 1e-5
 COMP_LAYERS, COMP_BATCH, COMP_SEQ, COMP_STEPS = 4, 4, 512, 4
 # the GPipe forward: 8 full-width blocks, 2 stages, 4 microbatches
 PP_LAYERS, PP_STAGES, PP_MICRO, PP_SEQ = 8, 2, 4, 1024
+# phase 4d: the other families at full width and depth.  deepseek's
+# prefill at the length of SHAPES["train_4k"]; pixtral's 256 stub patch
+# embeddings + 3,840 tokens make the same 4,096 positions; recurrentgemma
+# over two of its 2,048-token windows, then 64 tokens decoded; xlstm's
+# forward at B = 4, S = 2,048, trained at S = 256 (its sLSTM loop over
+# time holds a step to 13.1 s at S = 2,048 and 3.9 s at S = 512 on the
+# H100); granite-moe and musicgen at S = 1,024 (the
+# stub prefix included), 4 tokens decoded
+MOE_ARCH, MLA_SEQ = "deepseek-v2-lite-16b", 4096
+VLM_ARCH, VLM_TOKENS = "pixtral-12b", 3840
+HYBRID_ARCH, HYBRID_SEQ, HYBRID_DECODE = "recurrentgemma-2b", 4096, 64
+XLSTM_ARCH, XLSTM_BATCH, XLSTM_SEQ = "xlstm-125m", 4, 2048
+XLSTM_TRAIN_SEQ, XLSTM_STEPS, XLSTM_DECODE = 256, 6, 32
+SWEEP_SEQ, SWEEP_DECODE = 1024, 4
+SWEEP = (("granite-moe-1b-a400m", "family_sweep_granite_moe"),
+         ("musicgen-medium", "family_sweep_musicgen"))
+# layer by layer on one forward's own inputs (``_layer_walk``): an MoE
+# block through EP against the dense oracle (bf16 rounding of the two
+# combines; 2.8e-3 on the CPU smoke config), the flash kernel's attention
+# against einsum's (the kernel's own row gate, FLASH_BF16_ROW_REL)
+MOE_LAYER_REL_L2 = 1e-2
+FLASH_LAYER_REL_L2 = 2e-2
+# the RG-LRU's log-depth scan against the step-by-step recurrence on the
+# card, bf16 outputs: a few bf16 ulps (2^-8 relative each)
+SCAN_REL_L2 = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -1791,58 +1849,88 @@ def _lm_readings(got, want, tokens):
     return out
 
 
-def _lm_gate(r):
-    """Argmax agreement at ``LM_ARGMAX_AGREEMENT`` or more and the relative
-    L2 difference at ``LM_LOGIT_REL_L2`` or less."""
-    check(r["argmax_agreement"] >= LM_ARGMAX_AGREEMENT, f"lm_prefill: argmax "
-          f"agrees with the einsum forward at {r['argmax_agreement']:.4f} of "
+def _lm_gate(r, path="lm_prefill", against="the einsum forward",
+             rel_l2=True):
+    """Argmax agreement at ``LM_ARGMAX_AGREEMENT`` or more and, with
+    ``rel_l2``, the relative L2 difference at ``LM_LOGIT_REL_L2`` or
+    less."""
+    check(r["argmax_agreement"] >= LM_ARGMAX_AGREEMENT, f"{path}: argmax "
+          f"agrees with {against} at {r['argmax_agreement']:.4f} of "
           f"positions")
-    check(r["logit_rel_l2"] <= LM_LOGIT_REL_L2, f"lm_prefill: logits differ "
-          f"from the einsum forward's by a relative L2 of "
+    check(not rel_l2 or r["logit_rel_l2"] <= LM_LOGIT_REL_L2,
+          f"{path}: logits differ "
+          f"from {against}'s by a relative L2 of "
           f"{r['logit_rel_l2']:.3e} without the input token's column")
 
 
-def _engine_against_forward(out, n=2):
-    """For the first ``n`` distinct prompts of the served workload: a fresh
-    one-slot engine's greedy next token against the forward's argmax at the
-    last position.  The logits are held at the reference's decode-vs-forward
-    tolerance (atol 0.55, rtol 0.05); the tokens must be equal unless the
-    forward's top-2 margin is within twice the largest logit difference,
-    where bf16 rounding may flip a near-tie."""
+def _decode_against_forward(path, cfg, params, prompt, mesh=None,
+                            elementwise=True):
+    """A fresh one-slot engine fed ``prompt`` token by token: its last
+    logits against the forward's at the last position, printed, then held.
+    The greedy tokens must be equal unless the forward's top-2 margin is
+    within twice the largest logit difference, where bf16 rounding may
+    flip a near-tie.  ``elementwise``: the logits at the reference's
+    decode-vs-forward tolerance (atol 0.55, rtol 0.05), which its smoke
+    tests set for 2-3 layers and a 128-entry vocabulary; otherwise the
+    relative L2 difference of the logits without the last input token's
+    column at ``LM_LOGIT_REL_L2`` or less, as the prefill paths hold it
+    (for an MoE config printed only: a route flipped by rounding moves a
+    token's logits by O(1)).  A frontend architecture's forward gets an
+    empty prefix (the engine decodes tokens only)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Engine
+    eng = Engine.create(cfg, params, batch=1, max_len=max(32, len(prompt)),
+                        mesh=mesh)
+    t0 = time.perf_counter()
+    got = eng.prefill(prompt[None])[0]            # ends in a copy to the host
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(prompt)
+    embeds = (torch.zeros((1, 0, transformer.STUB_FRONTEND_DIM),
+                          device="cuda") if cfg.frontend else None)
+    with torch.no_grad():
+        want, _ = transformer.forward(params, cfg,
+                                      torch.from_numpy(prompt[None]).cuda(),
+                                      embeds, mesh)
+    want = want[0, -1, :cfg.vocab_size].float().cpu()
+    diff = (got - want).abs()
+    top2 = want.topk(2).values
+    margin, delta = float(top2[0] - top2[1]), float(diff.max())
+    same = int(got.argmax()) == int(want.argmax())
+    g, w = got.clone(), want.clone()
+    g[int(prompt[-1])] = w[int(prompt[-1])] = 0.0
+    rel = float((g - w).norm() / w.norm())
+    out = {"prompt_len": len(prompt), "engine_token": int(got.argmax()),
+           "forward_token": int(want.argmax()), "equal": same,
+           "top2_margin": margin, "max_abs_logit_diff": delta,
+           "logit_rel_l2": rel, "engine_ms_per_step": step_ms}
+    if not elementwise:
+        print(f"  {path}: engine decode of {len(prompt)} tokens vs forward "
+              f"{json.dumps(out)}")
+    if elementwise:
+        check(bool((diff <= 0.55 + 0.05 * want.abs()).all()),
+              f"{path}: engine logits differ from forward by up to "
+              f"{delta:.3f}")
+    elif cfg.moe is None:
+        check(rel <= LM_LOGIT_REL_L2, f"{path}: engine logits differ from "
+              f"the forward's by a relative L2 of {rel:.3e}")
+    check(same or margin <= 2 * delta, f"{path}: greedy token "
+          f"{int(got.argmax())} != forward argmax {int(want.argmax())} "
+          f"at top-2 margin {margin:.3f} > 2 x {delta:.3f}")
+    return out
+
+
+def _engine_against_forward(out, n=2, path="lm_serve", elementwise=True):
+    """:func:`_decode_against_forward` for the first ``n`` distinct
+    prompts of the served workload, on the served engine's weights and
+    mesh."""
     eng0 = out["engine"]
-    cfg, params = eng0.cfg, eng0.params
     prompts = []
     for p in out["workload"]:
         if not any(np.array_equal(p, q) for q in prompts):
             prompts.append(p)
-    checks = []
-    for p in prompts[:n]:
-        eng = Engine.create(cfg, params, batch=1, max_len=32)
-        t0 = time.perf_counter()
-        got = eng.prefill(p[None])[0]            # ends in a copy to the host
-        step_ms = (time.perf_counter() - t0) * 1e3 / len(p)
-        with torch.no_grad():
-            want, _ = transformer.forward(params, cfg,
-                                          torch.from_numpy(p[None]).cuda())
-        want = want[0, -1, :cfg.vocab_size].float().cpu()
-        diff = (got - want).abs()
-        check(bool((diff <= 0.55 + 0.05 * want.abs()).all()),
-              f"lm_serve: engine logits differ from forward by up to "
-              f"{float(diff.max()):.3f}")
-        top2 = want.topk(2).values
-        margin, delta = float(top2[0] - top2[1]), float(diff.max())
-        same = int(got.argmax()) == int(want.argmax())
-        check(same or margin <= 2 * delta, f"lm_serve: greedy token "
-              f"{int(got.argmax())} != forward argmax {int(want.argmax())} "
-              f"at top-2 margin {margin:.3f} > 2 x {delta:.3f}")
-        checks.append({"prompt_len": len(p), "engine_token": int(got.argmax()),
-                       "forward_token": int(want.argmax()), "equal": same,
-                       "top2_margin": margin, "max_abs_logit_diff": delta,
-                       "engine_ms_per_step": step_ms})
-    return checks
+    return [_decode_against_forward(path, eng0.cfg, eng0.params, p,
+                                    eng0.mesh, elementwise)
+            for p in prompts[:n]]
 
 
 def _lm_warm_restart(out):
@@ -1877,17 +1965,17 @@ def _lm_warm_restart(out):
     return {"rows": rows, "restore_s": restore_s, "hit": True}
 
 
-def _lm_serve():
-    """The serving driver at full width, launch counts read around it, its
-    cache snapshotted on exit and warm-restarted after."""
-    import shutil
+def _serve_path(path, argv):
+    """``launch.serve.main(argv)`` with the launch counts zeroed before and
+    read after: one ``cam_pack`` and one ``cam_search_topk`` per lookup
+    group of the AM cache and no other kernel; all 6 requests answered,
+    repeats served from the cache.  Returns (output, launches, seconds,
+    lookup groups)."""
     import torch
     from repro_torch.launch import serve as launch_serve
-    shutil.rmtree(DURABLE_SERVE_DIR, ignore_errors=True)
     reset_launches()
     t0 = time.perf_counter()
-    out = launch_serve.main(["--arch", LM_ARCH, "--full",
-                             "--am-snapshot-dir", DURABLE_SERVE_DIR])
+    out = launch_serve.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -1895,11 +1983,23 @@ def _lm_serve():
     groups = sum(cache["buckets"].values())
     want = {name: groups if name in ("cam_search_topk", "cam_pack") else 0
             for name in launches}
-    check(launches == want, f"lm_serve: launches {launches}, expected "
+    check(launches == want, f"{path}: launches {launches}, expected "
           f"{want} for {groups} lookup groups")
     check(sorted(out["results"]) == list(range(6)),
-          f"lm_serve answered {sorted(out['results'])}")
-    check(cache["hits"] > 0, "lm_serve: no repeat was served from the cache")
+          f"{path} answered {sorted(out['results'])}")
+    check(cache["hits"] > 0, f"{path}: no repeat was served from the cache")
+    return out, launches, seconds, groups
+
+
+def _lm_serve():
+    """The serving driver at full width, launch counts read around it, its
+    cache snapshotted on exit and warm-restarted after."""
+    import shutil
+    shutil.rmtree(DURABLE_SERVE_DIR, ignore_errors=True)
+    out, launches, seconds, groups = _serve_path(
+        "lm_serve", ["--arch", LM_ARCH, "--full", "--am-snapshot-dir",
+                     DURABLE_SERVE_DIR])
+    cache = out["cache"]
     warm = _lm_warm_restart(out)
     checks = _engine_against_forward(out)
     print(f"  lm_serve: launches {launches}, {seconds:.3f} s; 6/6 answered, "
@@ -1966,16 +2066,22 @@ def _changed(before, state):
 
 
 def _profiled_step(step, state, batch, top=12):
-    """One more training step under ``torch.profiler``: its wall ms, the
-    device's busy ms (the kernels' device time summed) and the ``top`` ops
-    by the device time of the kernels each launched itself."""
+    """One more training step under ``torch.profiler``
+    (:func:`_profiled`)."""
+    return _profiled(lambda: step(state, batch), top)
+
+
+def _profiled(fn, top=12):
+    """``fn()`` under ``torch.profiler``: its wall ms, the device's busy ms
+    (the kernels' device time summed) and the ``top`` ops by the device
+    time of the kernels each launched itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -2275,7 +2381,8 @@ def _stacked(tree):
 
 def _namespace(tree):
     """A nested dict of tensors as attribute-access objects, the shape
-    ``transformer._block_apply`` reads a block's parameters in."""
+    ``transformer._block_apply`` (which returns the block's output and
+    its aux loss) reads a block's parameters in."""
     import types
     if isinstance(tree, dict):
         return types.SimpleNamespace(**{k: _namespace(v)
@@ -2303,7 +2410,8 @@ def _pipeline_fwd():
     positions = torch.arange(PP_SEQ, device="cuda").expand(1, PP_SEQ)
 
     def block(lp, h):
-        return transformer._block_apply(_namespace(lp), h, cfg, positions)
+        return transformer._block_apply(_namespace(lp), h, cfg,
+                                        positions)[0]
 
     fwd = make_pp_forward(block, PP_LAYERS, PP_STAGES, PP_MICRO,
                           LocalMesh((PP_STAGES,), ("pod",)),
@@ -2313,7 +2421,7 @@ def _pipeline_fwd():
         want = x
         for blk in lm.blocks:           # the LM's own blocks, in order
             want = torch.stack([transformer._block_apply(
-                blk, want[m], cfg, positions) for m in range(PP_MICRO)])
+                blk, want[m], cfg, positions)[0] for m in range(PP_MICRO)])
     del lm, params
     got = out[(PP_STAGES - 1) * PP_MICRO:].float()
     want = want.float()
@@ -2342,6 +2450,531 @@ def phase_train():
     paths["train_loop"] = _train_loop()
     paths["train_compressed"] = _train_compressed()
     paths["pipeline_fwd"] = _pipeline_fwd()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the other model families at full width
+# ---------------------------------------------------------------------------
+
+def _draw(cfg):
+    """(weights of ``cfg`` drawn on the card from SEED, init seconds,
+    parameter count)."""
+    import torch
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    return (params, time.perf_counter() - t0,
+            sum(p.numel() for p in params.parameters()))
+
+
+def _tokens(cfg, b, s, seed):
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s))).cuda()
+
+
+def _prefix(cfg, n, seed):
+    """(1, n, 1024) stub frontend embeddings drawn on the card."""
+    import torch
+    from repro_torch.models import transformer
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((1, n, transformer.STUB_FRONTEND_DIM), generator=gen,
+                       device="cuda")
+
+
+def _flash(cfg):
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, attn_impl="flash"))
+
+
+def _timed(fn):
+    """(fn(), seconds to the card's completion)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _moe_flop(cfg, tokens):
+    """MoE FFN FLOP of one forward over ``tokens`` tokens, all layers:
+    (dense oracle: every token through every routed expert, EP: through
+    its top-k), each with the shared experts."""
+    m = cfg.moe
+    per_expert = 2 * cfg.d_model * 3 * m.d_ff_expert   # gate+up, down
+    shared = per_expert * m.n_shared
+    n = tokens * cfg.n_layers
+    return (n * (per_expert * m.n_experts + shared),
+            n * (per_expert * m.top_k + shared))
+
+
+def _layer0_groups(params, cfg, tokens):
+    """Layer 0's expert-group sizes, (min, max) assignments over the
+    routed experts, and its MoE input."""
+    import torch
+    from repro_torch.models import layers, mla, moe, transformer
+    blk = params.blocks[0]
+    with torch.no_grad():
+        x = params.embed[tokens].to(transformer.model_dtype(cfg))
+        pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+        x = x + mla.full_attention(blk.attn, layers.rmsnorm(
+            blk.norm1, x, cfg.norm_eps), cfg, pos)
+        h2 = layers.rmsnorm(blk.norm2, x, cfg.norm_eps)
+        _, experts, _ = moe._route(blk.moe.router, h2.reshape(
+            -1, cfg.d_model), cfg.moe.top_k)
+        sizes = torch.bincount(experts.reshape(-1),
+                               minlength=cfg.moe.n_experts)
+    return int(sizes.min()), int(sizes.max()), h2
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _layer_walk(params, cfg_a, cfg_b, tokens, embeds=None, mesh_a=None,
+                mesh_b=None):
+    """Two forwards of the same weights, ``a`` and ``b`` (``"attn"``
+    blocks), walked layer by layer side by side.  Per layer: the
+    teacher-forced difference, block ``a``'s and block ``b``'s residual
+    delta (attention, then the FFN) on ``a``'s own input, as a relative
+    L2 (``layer_rel_l2``; ``attn_rel_l2`` the attention's alone); for MoE
+    the share of tokens whose top-k expert set differs between the two
+    streams (``route_flips``); and how far the two residual streams have
+    drifted apart (``stream_rel_l2``)."""
+    import torch
+    from repro_torch.models import attention, layers, mla, moe, transformer
+    same_attn = cfg_a.parallel.attn_impl == cfg_b.parallel.attn_impl
+    eps = cfg_a.norm_eps
+
+    def attn(blk, cfg, h):
+        if cfg.mla is not None:
+            return mla.full_attention(blk.attn, h, cfg, pos)
+        return attention.full_attention(blk.attn, h, cfg, pos)
+
+    def ffn(blk, cfg, mesh, h2):
+        if cfg.moe is not None:
+            return moe.moe_block(blk.moe, h2, cfg, mesh)[0]
+        return layers.mlp(blk.mlp, h2)
+
+    def expert_sets(blk, h2):
+        e = moe._route(blk.moe.router, h2.reshape(-1, cfg_a.d_model),
+                       cfg_a.moe.top_k)[1]
+        return e.sort(dim=-1).values
+
+    rows = []
+    with torch.no_grad():
+        x_a = transformer._embed_inputs(params, cfg_a, tokens, embeds)
+        x_b = x_a.clone()
+        pos = torch.arange(x_a.shape[1], device=x_a.device).expand(
+            x_a.shape[:2])
+        for blk in params.blocks:
+            a_a = attn(blk, cfg_a, layers.rmsnorm(blk.norm1, x_a, eps))
+            a_t = a_a if same_attn else attn(
+                blk, cfg_b, layers.rmsnorm(blk.norm1, x_a, eps))
+            a_b = attn(blk, cfg_b, layers.rmsnorm(blk.norm1, x_b, eps))
+            h2_a, h2_t, h2_b = (layers.rmsnorm(blk.norm2, y, eps) for y in
+                                (x_a + a_a, x_a + a_t, x_b + a_b))
+            f_a = ffn(blk, cfg_a, mesh_a, h2_a)
+            f_t = ffn(blk, cfg_b, mesh_b, h2_t)
+            f_b = ffn(blk, cfg_b, mesh_b, h2_b)
+            row = {"layer_rel_l2": _rel(a_a + f_a, a_t + f_t),
+                   "attn_rel_l2": _rel(a_a, a_t)}
+            if cfg_a.moe is not None:
+                row["route_flips"] = float(
+                    (expert_sets(blk, h2_a) != expert_sets(blk, h2_b))
+                    .any(dim=-1).double().mean())
+            x_a, x_b = x_a + a_a + f_a, x_b + a_b + f_b
+            row["stream_rel_l2"] = _rel(x_a, x_b)
+            rows.append(row)
+    return rows
+
+
+def _walk_summary(rows):
+    """The largest per-layer readings of :func:`_layer_walk`, and the
+    route flips and stream drift at the first, middle and last layers."""
+    out = {k: max(r[k] for r in rows) for k in rows[0]
+           if k in ("layer_rel_l2", "attn_rel_l2")}
+    picks = sorted({0, len(rows) // 2, len(rows) - 1})
+    for k in ("route_flips", "stream_rel_l2"):
+        if k in rows[0]:
+            out[k] = {i: rows[i][k] for i in picks}
+    return out
+
+
+def _moe_mla_prefill():
+    """deepseek-v2-lite-16b at full width and depth, B = 1, S = 4,096:
+    the forward through EP on a one-bank mesh against the dense oracle on
+    the same weights."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import LocalMesh
+    from repro_torch.models import moe, transformer
+    cfg = get_config(MOE_ARCH)
+    free = _mem_before("moe_mla_prefill")
+    params, init_s, n_params = _draw(cfg)
+    tokens = _tokens(cfg, 1, MLA_SEQ, SEED + 21)
+    mesh = LocalMesh((1,), ("model",))
+    with torch.no_grad():
+        (logits, aux), path = _run_path(
+            "moe_mla_prefill",
+            lambda: transformer.forward(params, cfg, tokens, None, mesh), {})
+        (want, want_aux), dense_s = _timed(
+            lambda: transformer.forward(params, cfg, tokens))
+        # again, warm: the first call meets every expert group's product
+        # shape for the first time
+        _, warm_s = _timed(lambda: transformer.forward(params, cfg, tokens,
+                                                       None, mesh))
+    check(logits.shape == (1, MLA_SEQ, cfg.vocab_padded),
+          f"moe_mla_prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)),
+          "moe_mla_prefill: non-finite logits or aux")
+    gate = _lm_readings(logits, want, tokens)
+    del logits, want
+    gmin, gmax, h2 = _layer0_groups(params, cfg, tokens)
+    blk = params.blocks[0].moe
+    with torch.no_grad():
+        moe.moe_ep(blk, h2, cfg, mesh)                     # warm
+        prof_ep = _profiled(lambda: moe.moe_ep(blk, h2, cfg, mesh), top=8)
+        prof_dense = _profiled(lambda: moe.moe_dense(blk, h2, cfg), top=4)
+    del h2
+    walk = _layer_walk(params, cfg, cfg, tokens, mesh_a=mesh)
+    summary = _walk_summary(walk)
+    flop_dense, flop_ep = _moe_flop(cfg, MLA_SEQ)
+    print(f"  moe_mla_prefill: {cfg.name} {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, MLA rank {cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.n_shared} shared; {n_params / 1e9:.3f} B params (init "
+          f"{init_s:.2f} s); EP forward {path['seconds']:.3f} s (warm "
+          f"{warm_s:.3f} s), dense oracle {dense_s:.3f} s (MoE FFN {flop_ep / 1e12:.1f} against "
+          f"{flop_dense / 1e12:.1f} TFLOP); aux {float(aux):.4f} (dense "
+          f"{float(want_aux):.4f}); end to end against the dense oracle: "
+          f"argmax agreement {gate['argmax_agreement']:.4f}, relative L2 "
+          f"without the input token's column {gate['logit_rel_l2']:.3e}; "
+          f"layer by layer on the EP forward's own inputs: largest MoE "
+          f"block difference EP vs dense {summary['layer_rel_l2']:.3e} "
+          f"(limit {MOE_LAYER_REL_L2}), routes differing between the two "
+          f"forwards at layers {summary['route_flips']}, streams apart by "
+          f"{summary['stream_rel_l2']}; layer 0: expert groups "
+          f"{gmin}-{gmax} of {MLA_SEQ * cfg.moe.top_k} assignments; its MoE "
+          f"under torch.profiler: EP {prof_ep['wall_ms']:.2f} ms wall, "
+          f"device busy {prof_ep['device_ms']:.2f} ms, by op: " + "; ".join(
+              f"{r['op']} {r['device_ms']:.2f} ({r['calls']})"
+              for r in prof_ep["top"]) + f"; dense "
+          f"{prof_dense['wall_ms']:.2f} ms wall, device busy "
+          f"{prof_dense['device_ms']:.2f} ms")
+    # the two forwards' routes flip apart (printed above): end to end only
+    # the argmax is held
+    _lm_gate(gate, "moe_mla_prefill", "the dense oracle", rel_l2=False)
+    check(summary["layer_rel_l2"] <= MOE_LAYER_REL_L2, "moe_mla_prefill: "
+          f"an MoE block differs from the dense oracle on the same input "
+          f"by a relative L2 of {summary['layer_rel_l2']:.3e}")
+    path.update({"arch": cfg.name, "params": n_params, "seq": MLA_SEQ,
+                 "init_s": init_s, **gate, "dense_forward_s": dense_s,
+                 "ep_forward_warm_s": warm_s,
+                 "aux": float(aux), "dense_aux": float(want_aux),
+                 "moe_tflop_ep": flop_ep / 1e12,
+                 "moe_tflop_dense": flop_dense / 1e12,
+                 "layer0_group_min": gmin, "layer0_group_max": gmax,
+                 "layer0_ep_profile": prof_ep,
+                 "layer0_dense_profile": prof_dense,
+                 "walk": walk, "free_bytes_before": free})
+    del params
+    return _mem_after("moe_mla_prefill", path)
+
+
+def _moe_mla_serve():
+    """The serving driver on deepseek-v2-lite-16b at full width: decode on
+    the absorbed MLA cache through EP, the AM cache in front."""
+    from repro_torch.models import mla
+    free = _mem_before("moe_mla_serve")
+    out, launches, seconds, groups = _serve_path(
+        "moe_mla_serve", ["--arch", MOE_ARCH, "--full"])
+    eng = out["engine"]
+    cfg = eng.cfg
+    checks = _engine_against_forward(out, path="moe_mla_serve",
+                                     elementwise=False)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in eng.cache.values())
+    per_token = cache_bytes / (eng.batch * eng.max_len)
+    c_shp, r_shp = mla.cache_shape(cfg, 1, 1)
+    m = cfg.mla
+    kv_heads = (cfg.n_heads * (m.nope_head_dim + m.rope_head_dim)
+                + cfg.n_heads * m.v_head_dim)
+    materialised = kv_heads * 2 * cfg.n_layers
+    check(per_token == (c_shp[-1] + r_shp[-1]) * 2 * cfg.n_layers,
+          f"moe_mla_serve: {per_token} cache bytes a token")
+    ms = [c["engine_ms_per_step"] for c in checks]
+    print(f"  moe_mla_serve: launches {launches}, {seconds:.3f} s; 6/6 "
+          f"answered, {len(out['generated'])} generated in {out['ticks']} "
+          f"ticks, cache {out['cache']['hits']}/{out['cache']['lookups']} "
+          f"hits; latent cache {per_token:.0f} B a token ({cfg.n_layers} "
+          f"layers x (c_kv {c_shp[-1]} + k_rope {r_shp[-1]}) x 2 B; the "
+          f"same heads as a materialised K/V cache: {materialised} B); "
+          f"engine vs forward {json.dumps(checks)}")
+    path = {"launches": launches, "seconds": seconds, "groups": groups,
+            "answered": len(out["results"]),
+            "generated": len(out["generated"]), "ticks": out["ticks"],
+            "hits": out["cache"]["hits"], "lookups": out["cache"]["lookups"],
+            "cache_bytes_per_token": per_token,
+            "materialised_bytes_per_token": materialised,
+            "engine_ms_per_step": ms, "engine_vs_forward": checks,
+            "free_bytes_before": free}
+    del out, eng
+    return _mem_after("moe_mla_serve", path)
+
+
+def _flash_against_einsum(path, cfg, params, tokens, embeds=None, mesh=None):
+    """The flash forward (one launch a layer) against the einsum forward on
+    the same weights, held on the token positions by the gates of
+    ``lm_prefill``.  Returns the path's reading."""
+    import torch
+    from repro_torch.models import transformer
+    flash = _flash(cfg)
+    with torch.no_grad():
+        (got, _), reading = _run_path(
+            path, lambda: transformer.forward(params, flash, tokens, embeds,
+                                              mesh),
+            {"flash_attention": cfg.n_layers})
+        want, einsum_s = _timed(lambda: transformer.forward(
+            params, cfg, tokens, embeds, mesh)[0])
+    p = 0 if embeds is None else embeds.shape[1]
+    check(got.shape == (*tokens.shape[:1], p + tokens.shape[1],
+                        cfg.vocab_padded), f"{path}: logits shape "
+          f"{tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{path}: non-finite logits")
+    gate = _lm_readings(got[:, p:], want[:, p:], tokens)
+    del got, want
+    walk = _layer_walk(params, flash, cfg, tokens, embeds, mesh, mesh)
+    summary = _walk_summary(walk)
+    print(f"  {path}: flash against einsum layer by layer on the flash "
+          f"forward's own inputs: largest attention difference "
+          f"{summary['attn_rel_l2']:.3e} (limit {FLASH_LAYER_REL_L2}), "
+          f"block {summary['layer_rel_l2']:.3e}; streams apart by "
+          f"{summary['stream_rel_l2']}"
+          + (f", routes differing at layers {summary['route_flips']}"
+             if "route_flips" in summary else ""))
+    check(summary["attn_rel_l2"] <= FLASH_LAYER_REL_L2, f"{path}: flash "
+          f"attention differs from einsum on the same input by a relative "
+          f"L2 of {summary['attn_rel_l2']:.3e}")
+    # an MoE forward's routes flip apart (printed above): end to end only
+    # the argmax is held there
+    _lm_gate(gate, path, rel_l2=cfg.moe is None)
+    reading.update({**gate, "einsum_forward_s": einsum_s, "walk": walk,
+                    "prefix": p, "seq": p + tokens.shape[1]})
+    return reading
+
+
+def _vlm_prefill():
+    """pixtral-12b at full width and depth on the flash kernel: 256 stub
+    patch embeddings and 3,840 tokens, held against the einsum forward on
+    the token positions."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(VLM_ARCH)
+    free = _mem_before("vlm_prefill")
+    params, init_s, n_params = _draw(cfg)
+    tokens = _tokens(cfg, 1, VLM_TOKENS, SEED + 22)
+    embeds = _prefix(cfg, cfg.n_prefix_embeds, SEED + 23)
+    path = _flash_against_einsum("vlm_prefill", cfg, params, tokens, embeds)
+    print(f"  vlm_prefill: {cfg.name} {n_params / 1e9:.3f} B params (init "
+          f"{init_s:.2f} s), {cfg.n_prefix_embeds} patch embeddings + "
+          f"{VLM_TOKENS} tokens; flash {path['seconds']:.3f} s, einsum "
+          f"{path['einsum_forward_s']:.3f} s; on the token positions: argmax "
+          f"agreement {path['argmax_agreement']:.4f}, relative L2 "
+          f"{path['logit_rel_l2']:.3e} (limit {LM_LOGIT_REL_L2})")
+    path.update({"arch": cfg.name, "params": n_params, "init_s": init_s,
+                 "free_bytes_before": free})
+    del params
+    return _mem_after("vlm_prefill", path)
+
+
+def _scan_readings(rec, cfg):
+    """The RG-LRU's log-depth scan on one full-width (1, S, R) input: its
+    ms (median of 5 CUDA-event timings) and its relative L2 difference
+    from the step-by-step recurrence on the card."""
+    import torch
+    from repro_torch.models import rglru
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    x = torch.randn((1, HYBRID_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        got = rglru.rglru_scan(rec, x)
+        times = []
+        for _ in range(5):
+            e0, e1 = _events(2)
+            e0.record()
+            rglru.rglru_scan(rec, x)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        h = torch.zeros((1, cfg.d_model), device="cuda")
+        steps = []
+        for t in range(HYBRID_SEQ):
+            out, h = rglru.rglru_step(rec, x[:, t:t + 1], h)
+            steps.append(out)
+        want = torch.cat(steps, dim=1).float()
+    rel = float((got.float() - want).norm() / want.norm())
+    return float(np.median(times)), rel
+
+
+def _hybrid_prefill():
+    """recurrentgemma-2b at full width and depth, B = 1, S = 4,096 (two
+    2,048-token windows: the chunked local path), then 64 tokens decoded
+    by the engine against the forward over them."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(HYBRID_ARCH)
+    free = _mem_before("hybrid_prefill")
+    params, init_s, n_params = _draw(cfg)
+    tokens = _tokens(cfg, 1, HYBRID_SEQ, SEED + 25)
+    with torch.no_grad():
+        (logits, _), path = _run_path(
+            "hybrid_prefill", lambda: transformer.forward(params, cfg,
+                                                          tokens), {})
+    check(logits.shape == (1, HYBRID_SEQ, cfg.vocab_padded),
+          f"hybrid_prefill logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "hybrid_prefill: non-finite")
+    del logits
+    rec = next(b.rec for i, b in enumerate(params.blocks)
+               if cfg.block_kind(i) == "rglru")
+    scan_ms, scan_rel = _scan_readings(rec, cfg)
+    n_scan = sum(cfg.block_kind(i) == "rglru" for i in range(cfg.n_layers))
+    print(f"  hybrid_prefill: {cfg.name} {n_params / 1e9:.3f} B params "
+          f"(init {init_s:.2f} s), pattern {cfg.block_pattern}, window "
+          f"{cfg.local_window}; forward {path['seconds']:.3f} s; RG-LRU scan "
+          f"{scan_ms:.3f} ms a layer at (1, {HYBRID_SEQ}, {cfg.d_model}) x "
+          f"{n_scan} layers, against the step loop relative L2 "
+          f"{scan_rel:.3e} (limit {SCAN_REL_L2})")
+    dec = _decode_against_forward("hybrid_prefill", cfg, params,
+                                  tokens[0, :HYBRID_DECODE].cpu().numpy(),
+                                  elementwise=False)
+    check(scan_rel <= SCAN_REL_L2, f"hybrid_prefill: the scan differs from "
+          f"the step-by-step recurrence by a relative L2 of {scan_rel:.3e}")
+    path.update({"arch": cfg.name, "params": n_params, "init_s": init_s,
+                 "seq": HYBRID_SEQ, "rglru_scan_ms": scan_ms,
+                 "rglru_layers": n_scan, "scan_vs_steps_rel_l2": scan_rel,
+                 "decode_vs_forward": dec, "free_bytes_before": free})
+    del params
+    return _mem_after("hybrid_prefill", path)
+
+
+def _xlstm_train():
+    """xlstm-125m at full size: the forward at B = 4, S = 2,048; 6 steps
+    of ``make_train_step`` on one ``lm_synth`` batch at B = 4, S = 256 (as
+    ``train_compressed`` steps on one batch, so the loss must fall; the
+    sLSTM's loop over time, forward, recompute and backward, sets the
+    length); 32 tokens decoded against the forward."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_synth
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    cfg = get_config(XLSTM_ARCH)
+    free = _mem_before("xlstm_train")
+    state = ts.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = ts.make_train_step(cfg, opt.OptCfg(warmup_steps=2))
+
+    def data(seq):
+        return lm_synth.batch_at(lm_synth.LMDataCfg(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=XLSTM_BATCH,
+            seed=SEED), 0)
+
+    long, batch = data(XLSTM_SEQ), data(XLSTM_TRAIN_SEQ)
+
+    def run():
+        with torch.no_grad():
+            logits, fwd_s = _timed(lambda: transformer.forward(
+                state.params, cfg, long["tokens"])[0])
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        rows = []
+        for _ in range(XLSTM_STEPS):
+            e0, e1 = _events(2)
+            e0.record()
+            _, metrics = step(state, batch)
+            e1.record()
+            e1.synchronize()
+            rows.append({"step_s": e0.elapsed_time(e1) / 1e3,
+                         "loss": float(metrics["loss"])})
+        return fwd_s, finite, rows
+
+    (fwd_s, finite, rows), path = _run_path("xlstm_train", run, {})
+    losses = [r["loss"] for r in rows]
+    med = float(np.median([r["step_s"] for r in rows[1:]]))
+    tokens = XLSTM_BATCH * XLSTM_TRAIN_SEQ
+    print(f"  xlstm_train: {cfg.name} {n_params / 1e9:.4f} B params, "
+          f"pattern {cfg.block_pattern}; forward at B = {XLSTM_BATCH}, S = "
+          f"{XLSTM_SEQ} {fwd_s:.3f} s; training at B = {XLSTM_BATCH}, S = "
+          f"{XLSTM_TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}; "
+          f"median of steps 2-{XLSTM_STEPS} {med:.4f} s a step, "
+          f"{tokens / med:.0f} tokens/s")
+    check(finite, "xlstm_train: non-finite forward logits")
+    check(all(np.isfinite(losses)), f"xlstm_train: losses {losses}")
+    check(losses[-1] < losses[0], f"xlstm_train: loss did not fall {losses}")
+    dec = _decode_against_forward("xlstm_train", cfg, state.params,
+                                  long["tokens"][0, :XLSTM_DECODE],
+                                  elementwise=False)
+    path.update({"arch": cfg.name, "params": n_params,
+                 "batch": XLSTM_BATCH, "seq": XLSTM_SEQ,
+                 "train_seq": XLSTM_TRAIN_SEQ, "forward_s": fwd_s,
+                 "steps": rows, "median_step_s": med,
+                 "tokens_per_s": tokens / med, "decode_vs_forward": dec,
+                 "free_bytes_before": free})
+    del state, step
+    return _mem_after("xlstm_train", path)
+
+
+def _family_sweep(arch, name):
+    """``arch`` at full width and depth: the flash forward at S = 1,024
+    (a frontend's stub prefix included) against the einsum forward, an
+    ``ep`` config's MoE through EP on a one-bank mesh, then 4 engine
+    decode steps against the forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import LocalMesh
+    cfg = get_config(arch)
+    free = _mem_before(name)
+    params, init_s, n_params = _draw(cfg)
+    mesh = LocalMesh((1,), ("model",)) if cfg.parallel.ep else None
+    p = cfg.n_prefix_embeds if cfg.frontend else 0
+    tokens = _tokens(cfg, 1, SWEEP_SEQ - p, SEED + 26)
+    embeds = _prefix(cfg, p, SEED + 27) if p else None
+    path = _flash_against_einsum(name, cfg, params, tokens, embeds, mesh)
+    print(f"  {name}: {cfg.name} {n_params / 1e9:.3f} B params (init "
+          f"{init_s:.2f} s), {cfg.n_layers} layers, dh {cfg.head_dim}"
+          f"{', EP on one bank' if mesh else ''}; S = {path['seq']} ({p} "
+          f"prefix); flash {path['seconds']:.3f} s, einsum "
+          f"{path['einsum_forward_s']:.3f} s; argmax agreement "
+          f"{path['argmax_agreement']:.4f}, relative L2 "
+          f"{path['logit_rel_l2']:.3e}")
+    dec = _decode_against_forward(name, cfg, params,
+                                  tokens[0, :SWEEP_DECODE].cpu().numpy(),
+                                  mesh, elementwise=False)
+    path.update({"arch": cfg.name, "params": n_params, "init_s": init_s,
+                 "decode_vs_forward": dec, "free_bytes_before": free})
+    del params
+    return _mem_after(name, path)
+
+
+def phase_families():
+    """Phase 4d: the other model families at full width, each path with
+    the launch counts zeroed before it and read after."""
+    t0 = time.perf_counter()
+    paths = {"moe_mla_prefill": _moe_mla_prefill()}
+    paths["moe_mla_serve"] = _moe_mla_serve()
+    paths["vlm_prefill"] = _vlm_prefill()
+    paths["hybrid_prefill"] = _hybrid_prefill()
+    paths["xlstm_train"] = _xlstm_train()
+    for arch, name in SWEEP:
+        paths[name] = _family_sweep(arch, name)
+    print(f"  phase 4d: {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -2765,8 +3398,10 @@ def main() -> int:
         lm_paths = phase_lm()
         print("phase 4c: training")
         train_paths = phase_train()
+        print("phase 4d: the other model families at full width")
+        family_paths = phase_families()
         paths = {**run["paths"], **tcam_paths, **app_paths, **lm_paths,
-                 **train_paths}
+                 **train_paths, **family_paths}
         print("phase 5: timing")
         rows, costs = phase_timing({**run, "paths": paths}, err)
         rows += phase_timing_app(paths, encode_shapes, err)

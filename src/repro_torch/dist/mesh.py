@@ -1,12 +1,14 @@
-"""Named device meshes and the four collectives the multi-bank search uses.
+"""Named device meshes and their collectives: the four the multi-bank
+search uses, and the all-to-all of the expert-parallel MoE.
 
 The reference runs its bank body inside ``jax.shard_map`` and reduces the
 per-bank candidates with ``axis_index``, ``all_gather``, ``ppermute`` and
-``psum``.  Here the same four collectives are methods of a mesh object,
-and the merges of :mod:`repro_torch.core.am` are written once against
-them.  A mesh has named axes with a shape (``("model",)``,
-``("data", "model")``, ``("pod", "data", "model")``), as ``jax.make_mesh``
-builds them.
+``psum``; its expert-parallel MoE dispatches tokens with
+``all_to_all``.  Here the same collectives are methods of a mesh object,
+and the merges of :mod:`repro_torch.core.am` and the MoE of
+:mod:`repro_torch.models.moe` are written once against them.  A mesh
+has named axes with a shape (``("model",)``, ``("data", "model")``,
+``("pod", "data", "model")``), as ``jax.make_mesh`` builds them.
 
 Values are **bank-stacked**: a tensor whose leading dimension runs over
 the banks this process holds (:meth:`banks`), one slice per bank.  A
@@ -120,6 +122,17 @@ class LocalMesh(_Mesh):
                              f"banks, got {perm}")
         index = torch.tensor([src_of[d] for d in range(b)], device=x.device)
         return _expand(x, b)[index]
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """(B_src, B_dst, ...) per-destination slices of each bank ->
+        (B_dst, B_src, ...): bank ``j`` receives slice ``j`` of every
+        bank, in bank order (the reference's tiled ``all_to_all`` on
+        dimension 0).  Here a transpose of the two bank dimensions."""
+        b = self.shape[axis]
+        if x.shape[:2] != (b, b):
+            raise ValueError(f"all_to_all over {b} banks needs a ({b}, {b}, "
+                             f"...) value, got {tuple(x.shape)}")
+        return x.transpose(0, 1)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum over the banks, replicated, in ``x``'s dtype (as an
@@ -245,6 +258,29 @@ class ProcessGroupMesh(_Mesh):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return out[None]
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """(1, B_dst, ...) this bank's slice for each bank -> (1, B_src,
+        ...) the slice each bank sent it, in bank order
+        (``torch.distributed.all_to_all_single``).  A bool value travels
+        as uint8."""
+        import torch.distributed as dist
+        group, members = self._group(axis)
+        b = len(members)
+        if x.shape[:2] != (1, b):
+            raise ValueError(f"all_to_all over {b} banks needs a (1, {b}, "
+                             f"...) value, got {tuple(x.shape)}")
+        # the group's ranks in ascending order, as the collective orders
+        # its chunks; a bank's coordinate is its place in ``members``
+        by_rank = sorted(range(b), key=lambda j: members[j])
+        send = x[0]
+        wire = send.to(torch.uint8) if send.dtype == torch.bool else send
+        wire = wire[by_rank].contiguous()
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire, group=group)
+        recv = torch.empty_like(out)
+        recv[by_rank] = out
+        return (recv.bool() if send.dtype == torch.bool else recv)[None]
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum over the banks, replicated."""

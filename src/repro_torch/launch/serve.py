@@ -148,8 +148,11 @@ def main(argv=None) -> dict:
     cfg = get_config(ALIASES.get(args.arch, args.arch), smoke=args.smoke)
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0))
+    # the reference's serving mesh: an ep config's MoE layers decode
+    # expert-parallel over its one bank
     engine = Engine.create(cfg, params, batch=args.slots,
-                           max_len=args.max_len, device=dev)
+                           max_len=args.max_len, device=dev,
+                           mesh=make_test_mesh())
     batcher = ContinuousBatcher(engine)
 
     rng = np.random.default_rng(0)

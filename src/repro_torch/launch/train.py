@@ -24,6 +24,8 @@ from repro_torch.checkpoint.fault_tolerance import FaultTolerantLoop
 from repro_torch.configs.registry import ALIASES, get_config
 from repro_torch.data import lm_synth
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import transformer
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as ts
 
@@ -52,11 +54,20 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
             SEED))
 
     def batch_fn(step: int):
-        return ts.to_device(lm_synth.batch_at(data_cfg, step), dev)
+        batch = ts.to_device(lm_synth.batch_at(data_cfg, step), dev)
+        if cfg.frontend is not None:
+            # the stub frontend's prefix: zero embeddings, as the
+            # reference's driver feeds
+            batch["embeds"] = torch.zeros(
+                (batch["tokens"].shape[0], cfg.n_prefix_embeds,
+                 transformer.STUB_FRONTEND_DIM), dtype=torch.float32,
+                device=dev)
+        return batch
 
     ckpt = Checkpointer(ckpt_dir, keep=2)
     loop = FaultTolerantLoop(
-        step_fn=ts.make_train_step(cfg, opt_cfg), init_state=init_state,
+        step_fn=ts.make_train_step(cfg, opt_cfg, make_test_mesh()),
+        init_state=init_state,
         batch_fn=batch_fn, ckpt=ckpt, ckpt_every=ckpt_every,
         watchdog_s=600.0, fault_injector=fault_injector)
     t0 = time.time()

@@ -6,8 +6,9 @@ KV replication up to the tensor-parallel width reduces to the stored
 ``kv_replicate`` (:func:`_kv_rep`).  Attention math accumulates in float32;
 masks fill with the finite -1e30.
 
-``local_attention`` and the ring-buffer decode of local layers come with
-the hybrid families.
+Local (sliding-window) layers: :func:`local_attention` is chunked over the
+window W, so its cost is O(S * W), and a local layer's decode cache is a
+ring buffer of ``min(max_len, W)`` slots.
 """
 
 from __future__ import annotations
@@ -133,19 +134,73 @@ def full_attention(params: Attention, x: torch.Tensor, cfg: ModelCfg,
     return out @ params.wo
 
 
+def local_attention(params: Attention, x: torch.Tensor, cfg: ModelCfg,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Sliding-window attention (window W), chunked so cost is O(S * W).
+
+    Queries in chunk c attend to keys in chunks {c-1, c} with an exact
+    banded mask; an (S, S) score matrix is never materialised.  ``S`` must
+    be a multiple of W when it exceeds W.
+    """
+    b, s, _ = x.shape
+    w = cfg.local_window
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    if s <= w:
+        return _local_fallback(params, q, k, v, positions, cfg)
+    if s % w:
+        raise ValueError(f"local attention over S={s} needs a multiple of "
+                         f"the window {w}")
+    c = s // w
+    h, dh = cfg.n_heads, cfg.head_dim
+    hk = k.shape[2]
+    qc = q.reshape(b, c, w, hk, h // hk, dh)
+    kc = k.reshape(b, c, w, hk, dh)
+    vc = v.reshape(b, c, w, hk, dh)
+    # keys for chunk c = [chunk c-1 ; chunk c]  (length 2W window coverage)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]],
+                              dim=1), kc], dim=2)           # (B,C,2W,HK,dh)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]],
+                              dim=1), vc], dim=2)
+    pos_q = positions.reshape(b, c, w)
+    pos_k = torch.cat([torch.cat([torch.full_like(pos_q[:, :1], -1),
+                                  pos_q[:, :-1]], dim=1), pos_q], dim=2)
+    scores = torch.einsum("bcskgd,bctkd->bckgst", qc.float(),
+                          k2.float()) * (dh ** -0.5)
+    pq = pos_q[:, :, None, None, :, None]
+    pk = pos_k[:, :, None, None, None, :]
+    valid = (pq >= pk) & (pq - pk < w) & (pk >= 0)
+    probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+    out = torch.einsum("bckgst,bctkd->bcskgd", probs.to(v2.dtype), v2)
+    return out.reshape(b, s, h * dh) @ params.wo
+
+
+def _local_fallback(params: Attention, q, k, v, positions, cfg: ModelCfg):
+    """Short-sequence path (S <= W): a banded mask over the full (small)
+    score matrix."""
+    b, s = q.shape[:2]
+    scores = _gqa_scores(q, k)
+    dpos = (positions[:, None, None, :, None]
+            - positions[:, None, None, None, :])
+    valid = (dpos >= 0) & (dpos < cfg.local_window)
+    probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+    return _apply_probs(probs, v).reshape(b, s, -1) @ params.wo
+
+
 # ---------------------------------------------------------------------------
 # Decode (single new token against a KV cache)
 # ---------------------------------------------------------------------------
 
-def cache_shape(cfg: ModelCfg, batch: int, max_len: int) -> tuple[tuple,
-                                                                   tuple]:
-    """(k_cache, v_cache) shapes for one full-attention layer."""
-    shp = (batch, max_len, cfg.n_kv_heads * _kv_rep(cfg), cfg.head_dim)
+def cache_shape(cfg: ModelCfg, batch: int, max_len: int,
+                local: bool = False) -> tuple[tuple, tuple]:
+    """(k_cache, v_cache) shapes for one layer; a local layer keeps
+    ``min(max_len, local_window)`` ring slots."""
+    t = min(max_len, cfg.local_window) if local else max_len
+    shp = (batch, t, cfg.n_kv_heads * _kv_rep(cfg), cfg.head_dim)
     return shp, shp
 
 
 def decode_attention(params: Attention, x: torch.Tensor, cache_kv, pos,
-                     cfg: ModelCfg, active=None):
+                     cfg: ModelCfg, local: bool = False, active=None):
     """One decode step.  x: (B, 1, D); cache_kv: (k, v) each (B, T, HK, dh);
     pos: scalar OR per-slot (B,) int positions (continuous batching).
     ``active``: optional (B,) bool — inactive slots neither write the cache
@@ -154,7 +209,8 @@ def decode_attention(params: Attention, x: torch.Tensor, cache_kv, pos,
     The cache is written in place (the reference returns a new one): each
     active slot's new K/V, cast to the cache's dtype, lands at its
     position; an inactive slot's row is written back unchanged, where the
-    reference routes its scatter out of range and drops it.
+    reference routes its scatter out of range and drops it.  A local layer
+    treats its cache as a ring buffer: position p lives in slot p % T.
     """
     b = x.shape[0]
     k_cache, v_cache = cache_kv
@@ -176,15 +232,21 @@ def decode_attention(params: Attention, x: torch.Tensor, cache_kv, pos,
     v_cache[bi, slot] = v_row
 
     scores = _gqa_scores(q, k_cache)                     # (B,HK,G,1,T)
-    valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+    kv_idx = torch.arange(t, device=x.device)
+    if local:
+        rp = _ring_positions(kv_idx, pos, t)   # (B,T) stored global pos
+        # rp < 0 marks ring slots never written yet (prefix not full)
+        valid = (rp >= 0) & (pos[:, None] - rp < cfg.local_window)
+    else:
+        valid = kv_idx[None, :] <= pos[:, None]
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _apply_probs(probs, v_cache).reshape(b, 1, -1)
-    return _matmul(out, params.wo), (k_cache, v_cache)
+    return layers.matmul(out, params.wo), (k_cache, v_cache)
 
 
-def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``a @ w`` in the promoted dtype, as jnp's ``@`` promotes mixed
-    operands (a bf16 cache read against float32 weights)."""
-    dt = torch.promote_types(a.dtype, w.dtype)
-    return a.to(dt) @ w.to(dt)
+def _ring_positions(kv_idx, pos, t):
+    """(B,T) global position stored in ring slot i at current positions."""
+    cur_slot = (pos % t)[:, None]
+    offset = kv_idx[None, :] - cur_slot
+    return pos[:, None] + torch.where(offset > 0, offset - t, offset)

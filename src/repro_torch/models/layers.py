@@ -20,6 +20,14 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def frozen_empty(module: nn.Module, shapes: dict, device=None) -> None:
+    """Give ``module`` a frozen, uninitialised parameter for each
+    ``name: (shape, dtype)`` of ``shapes``, in that order."""
+    for name, (shape, dtype) in shapes.items():
+        setattr(module, name, frozen(torch.empty(shape, dtype=dtype,
+                                                 device=device)))
+
+
 class LayerStack:
     """One leaf of the reference's parameter tree made of per-layer
     tensors: what the reference holds as one (L, ...) array of a scanned
@@ -159,8 +167,37 @@ def mlp_init(generator, d_model: int, d_ff: int, dtype=torch.bfloat16,
     return m
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """silu as the reference writes it: x * sigmoid(x), each op rounded."""
+    return x * torch.sigmoid(x)
+
+
 def mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
-    g = x @ params.w_gate
-    # silu as the reference writes it: x * sigmoid(x), each op rounded
-    h = g * torch.sigmoid(g) * (x @ params.w_up)
+    h = silu(x @ params.w_gate) * (x @ params.w_up)
     return h @ params.w_down
+
+
+def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted dtype, as jnp's ``@`` promotes mixed
+    operands (a bf16 activation or cache read against float32 weights)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                state: torch.Tensor | None = None):
+    """Depthwise causal convolution of width ``len(w)`` over dim 1.
+    x: (B,S,R); w: (W,R); state: (B,W-1,R), the previous inputs (zeros
+    when None).  Returns (out, new state), out summed tap by tap in
+    ``x``'s dtype as the reference sums it."""
+    width = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                     # (B, S+W-1, R)
+    s = x.shape[1]
+    out = 0
+    for i in range(width):
+        out = out + xp[:, i:i + s] * w[i]
+    return out, xp[:, -(width - 1):]

@@ -1,14 +1,23 @@
-"""Decoder assembly for the dense family: embeddings, blocks, forward
-(train/prefill) and decode steps.
+"""Decoder assembly for all ten architectures: embeddings, block dispatch,
+forward (train/prefill) and decode steps.
 
-Port of :mod:`repro.models.transformer` for ``"attn"`` blocks with a dense
-SwiGLU MLP, on one device.  The reference stacks a uniform stack on a
-leading L axis and scans it; here the layers are an ``nn.ModuleList``
-walked by a Python loop, and only the decode cache keeps the stacked
-(L, ...) layout (a training checkpoint stacks the layers on the host, see
-:mod:`repro_torch.checkpoint.checkpointer`).  The other block kinds, MoE,
-MLA and the stub frontends raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them.
+Port of :mod:`repro.models.transformer` on one device.  A block is one of
+five kinds (``cfg.block_kind(i)``): ``"attn"`` / ``"local"`` (GQA or MLA
+attention, then an MoE or a SwiGLU MLP), ``"rglru"``, ``"mlstm"`` and
+``"slstm"``, with the reference's parameter names (``norm1``, ``attn``,
+``norm2``, ``mlp`` / ``moe``, ``rec``, ``xl``).  The reference stacks a
+uniform stack on a leading L axis and scans it; here the layers are an
+``nn.ModuleList`` walked by a Python loop, and only the decode cache of a
+uniform stack keeps the stacked (L, ...) layout (a training checkpoint
+stacks the layers on the host, see
+:mod:`repro_torch.checkpoint.checkpointer`).  Heterogeneous stacks (the
+hybrid and xLSTM patterns) are lists of per-layer trees in
+:meth:`LM.reference_tree` and per-layer dicts in the cache, as in the
+reference.
+
+The audio and vision frontends are stubs, as in the reference: the model
+takes (B, P, 1024) precomputed frame or patch embeddings, and a learned
+``frontend_proj`` folds them into the token stream as a prefix.
 
 ``forward`` is differentiable: parameters are frozen as they are made, so
 serving builds no autograd graph, and training turns ``requires_grad`` on
@@ -27,31 +36,19 @@ from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mla, moe, rglru, xlstm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it comes with the model "
-        f"families of ROADMAP Queue 1 item 11b (only dense 'attn' blocks "
-        f"with a SwiGLU MLP are ported)")
+KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+STUB_FRONTEND_DIM = 1024   # precomputed frame/patch embedding width
 
 
 def check_supported(cfg: ModelCfg) -> None:
-    """Raise :class:`NotImplementedError` unless ``cfg`` is in the dense
-    family this port covers."""
-    kinds = set(cfg.block_pattern)
-    if kinds != {"attn"}:
-        raise _not_ported(f"block kinds {sorted(kinds - {'attn'})}"
-                          if kinds - {"attn"} else "this block pattern")
-    if cfg.moe is not None:
-        raise _not_ported("the MoE block")
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
-    if cfg.frontend is not None:
-        raise _not_ported(f"the {cfg.frontend} stub frontend")
+    """Raise :class:`ValueError` unless every block kind of ``cfg`` is one
+    of :data:`KINDS` (all ten architectures' are)."""
+    unknown = set(cfg.block_pattern) - set(KINDS)
+    if unknown:
+        raise ValueError(f"unknown block kinds {sorted(unknown)}")
 
 
 def model_dtype(cfg: ModelCfg) -> torch.dtype:
@@ -59,23 +56,65 @@ def model_dtype(cfg: ModelCfg) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One ``"attn"`` block: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """One block of kind ``kind``: ``norm1`` and, by kind, ``attn`` (MLA
+    or GQA) + ``norm2`` + ``moe`` or ``mlp``; ``rec`` + ``norm2`` +
+    ``mlp``; or ``xl`` (mLSTM / sLSTM)."""
 
-    def __init__(self, cfg: ModelCfg, dtype, device=None):
+    def __init__(self, cfg: ModelCfg, kind: str, dtype, device=None):
         super().__init__()
         self.norm1 = layers.RMSNorm(cfg.d_model, device)
-        self.attn = attention.Attention(cfg, dtype, device)
-        self.norm2 = layers.RMSNorm(cfg.d_model, device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        if kind in ("attn", "local"):
+            self.attn = (mla.MLA(cfg, dtype, device) if cfg.mla is not None
+                         else attention.Attention(cfg, dtype, device))
+            self.norm2 = layers.RMSNorm(cfg.d_model, device)
+            if cfg.moe is not None:
+                self.moe = moe.MoE(cfg, dtype, device)
+            else:
+                self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        elif kind == "rglru":
+            self.rec = rglru.RGLRU(cfg, dtype, device)
+            self.norm2 = layers.RMSNorm(cfg.d_model, device)
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        elif kind == "mlstm":
+            self.xl = xlstm.MLSTM(cfg, dtype, device)
+        elif kind == "slstm":
+            self.xl = xlstm.SLSTM(cfg, dtype, device)
+        else:
+            raise ValueError(kind)
+
+
+def _block_init(generator, cfg: ModelCfg, kind: str, blk: Block, dtype,
+                device) -> None:
+    """Draw ``blk``'s weights (its norms stay ones)."""
+    if kind in ("attn", "local"):
+        blk.attn = (mla.init(generator, cfg, dtype, device)
+                    if cfg.mla is not None
+                    else attention.init(generator, cfg, dtype, device))
+        if cfg.moe is not None:
+            blk.moe = moe.init(generator, cfg, dtype, device)
+        else:
+            blk.mlp = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                      dtype, device)
+    elif kind == "rglru":
+        blk.rec = rglru.init(generator, cfg, dtype, device)
+        blk.mlp = layers.mlp_init(generator, cfg.d_model, cfg.d_ff, dtype,
+                                  device)
+    elif kind == "mlstm":
+        blk.xl = xlstm.mlstm_init(generator, cfg, dtype, device)
+    else:
+        blk.xl = xlstm.slstm_init(generator, cfg, dtype, device)
 
 
 class LM(nn.Module):
     """Parameters of the decoder: ``embed`` (vocab_padded, d), ``blocks``,
-    ``final_norm`` and, without tied embeddings, ``lm_head`` (d,
-    vocab_padded).  Allocated uninitialised: :func:`init_params` draws
-    them, :func:`repro_torch.convert.lm_params_from_numpy` copies them in.
+    ``final_norm``, without tied embeddings ``lm_head`` (d, vocab_padded)
+    and, with a stub frontend, ``frontend_proj`` (1024, d).  Allocated
+    uninitialised: :func:`init_params` draws them,
+    :func:`repro_torch.convert.lm_params_from_numpy` copies them in.
     ``dtype`` (default the config's) is that of every weight but the
-    float32 norm scales; the optimizer's float32 copies are LMs too.
+    float32 leaves the reference keeps in float32 (norm scales, the MoE
+    router, the recurrent gates' biases and ``lam``, the mLSTM gate
+    weights); the optimizer's float32 copies are LMs too.
     """
 
     def __init__(self, cfg: ModelCfg, device=None, dtype=None):
@@ -89,8 +128,12 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = layers.frozen(torch.empty(
                 (cfg.d_model, cfg.vocab_padded), **kw))
-        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.frontend is not None:
+            self.frontend_proj = layers.frozen(torch.empty(
+                (STUB_FRONTEND_DIM, cfg.d_model), **kw))
+        self.blocks = nn.ModuleList(Block(cfg, cfg.block_kind(i), dtype,
+                                          device)
+                                    for i in range(cfg.n_layers))
         # the reference stacks a scanned uniform stack on a leading L axis
         self.stacked = cfg.scan_layers and cfg.uniform_pattern
 
@@ -168,10 +211,11 @@ def init_params(cfg: ModelCfg, generator: torch.Generator) -> LM:
     if not cfg.tie_embeddings:
         p.lm_head.copy_(layers.dense_init(generator, cfg.d_model,
                                           cfg.vocab_padded, dtype, dev))
-    for blk in p.blocks:
-        blk.attn = attention.init(generator, cfg, dtype, dev)
-        blk.mlp = layers.mlp_init(generator, cfg.d_model, cfg.d_ff, dtype,
-                                  dev)
+    if cfg.frontend is not None:
+        p.frontend_proj.copy_(layers.dense_init(
+            generator, STUB_FRONTEND_DIM, cfg.d_model, dtype, dev))
+    for i, blk in enumerate(p.blocks):
+        _block_init(generator, cfg, cfg.block_kind(i), blk, dtype, dev)
     return p
 
 
@@ -180,80 +224,203 @@ def init_params(cfg: ModelCfg, generator: torch.Generator) -> LM:
 # ---------------------------------------------------------------------------
 
 def _block_apply(p: Block, x: torch.Tensor, cfg: ModelCfg,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, kind: str = "attn", mesh=None):
+    """One block over (B, S, D) -> (residual-updated x, aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
-    x = x + attention.full_attention(p.attn, h, cfg, positions)
-    h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
-    return x + layers.mlp(p.mlp, h2)
+    if kind in ("attn", "local"):
+        if cfg.mla is not None:
+            a = mla.full_attention(p.attn, h, cfg, positions)
+        elif kind == "local":
+            a = attention.local_attention(p.attn, h, cfg, positions)
+        else:
+            a = attention.full_attention(p.attn, h, cfg, positions)
+        x = x + a
+        h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
+        if cfg.moe is not None:
+            f, aux = moe.moe_block(p.moe, h2, cfg, mesh)
+        else:
+            f = layers.mlp(p.mlp, h2)
+        x = x + f
+    elif kind == "rglru":
+        x = x + rglru.block(p.rec, h, cfg)
+        h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
+        x = x + layers.mlp(p.mlp, h2)
+    elif kind == "mlstm":
+        x = x + xlstm.mlstm_block(p.xl, h, cfg)
+    elif kind == "slstm":
+        x = x + xlstm.slstm_block(p.xl, h, cfg)
+    else:
+        raise ValueError(kind)
+    return x, aux
 
 
 def _head(params: LM, cfg: ModelCfg) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
-def forward(params: LM, cfg: ModelCfg, tokens) -> tuple[torch.Tensor,
-                                                          torch.Tensor]:
-    """Full forward pass -> (logits (B,S,vocab_padded), aux loss scalar).
-
-    The dense family has no auxiliary loss: aux is a float32 zero.  Where
-    grad is enabled and ``cfg.parallel.remat == "block"``, each layer's
-    activations are recomputed in the backward pass.
-    """
+def _embed_inputs(params: LM, cfg: ModelCfg, tokens, embeds):
+    """tokens (B,S_tok) [+ embeds (B,P,1024) for stub frontends] -> (B,S,D)
+    activations, the prefix's projection first."""
     tokens = torch.as_tensor(tokens, device=params.device).long()
     x = params.embed[tokens].to(model_dtype(cfg))
+    if cfg.frontend is not None:
+        if embeds is None:
+            raise ValueError(f"the {cfg.frontend} stub frontend of "
+                             f"{cfg.name} needs embeds (B, P, "
+                             f"{STUB_FRONTEND_DIM})")
+        embeds = torch.as_tensor(embeds, device=params.device)
+        prefix = embeds.to(x.dtype) @ params.frontend_proj
+        x = torch.cat([prefix, x], dim=1)
+    return x
+
+
+def forward(params: LM, cfg: ModelCfg, tokens, embeds=None,
+            mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full forward pass -> (logits (B,S,vocab_padded), aux loss scalar).
+
+    ``embeds`` (B, P, 1024): the stub frontend's prefix, which a frontend
+    architecture needs (its logits cover the P prefix positions too).
+    ``mesh``: the MoE layers of an ``ep`` config run expert-parallel over
+    its ``model`` axis (:func:`repro_torch.models.moe.moe_ep`), else the
+    dense oracle.  aux is the MoE load-balance losses summed over the
+    layers (a float32 zero without MoE).  Where grad is enabled and
+    ``cfg.parallel.remat == "block"``, each layer's activations are
+    recomputed in the backward pass.
+    """
+    x = _embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.parallel.remat == "block" and torch.is_grad_enabled()
-    for blk in params.blocks:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(params.blocks):
+        kind = cfg.block_kind(i)
         if remat:
-            x = _checkpoint.checkpoint(_block_apply, blk, x, cfg, positions,
-                                       use_reentrant=False)
+            x, a = _checkpoint.checkpoint(_block_apply, blk, x, cfg,
+                                          positions, kind, mesh,
+                                          use_reentrant=False)
         else:
-            x = _block_apply(blk, x, cfg, positions)
+            x, a = _block_apply(blk, x, cfg, positions, kind, mesh)
+        aux = aux + a
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = x @ _head(params, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ _head(params, cfg), aux
 
 
 # ---------------------------------------------------------------------------
 # Decode (one token, stateful caches)
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg: ModelCfg, kind: str, batch: int, max_len: int, dtype,
+                 dev, lead: tuple = ()) -> dict:
+    """Zero decode state of one layer (or of ``lead`` stacked layers)."""
+    f32 = torch.float32
+
+    def zeros(shp, dt=dtype):
+        return torch.zeros((*lead, *shp), dtype=dt, device=dev)
+
+    if kind in ("attn", "local"):
+        if cfg.mla is not None:
+            c_shp, r_shp = mla.cache_shape(cfg, batch, max_len)
+            return {"c_kv": zeros(c_shp), "k_rope": zeros(r_shp)}
+        k_shp, v_shp = attention.cache_shape(cfg, batch, max_len,
+                                             local=(kind == "local"))
+        return {"k": zeros(k_shp), "v": zeros(v_shp)}
+    if kind == "rglru":
+        shp = rglru.state_shape(cfg, batch)
+        return {"h": zeros(shp["h"], f32), "conv": zeros(shp["conv"])}
+    if kind == "mlstm":
+        shp = xlstm.mlstm_state_shape(cfg, batch)
+        return {"c": zeros(shp["c"], f32), "n": zeros(shp["n"], f32),
+                "m": zeros(shp["m"], f32).fill_(-1e30),
+                "conv": zeros(shp["conv"])}
+    if kind == "slstm":
+        shp = xlstm.slstm_state_shape(cfg, batch)
+        return {"c": zeros(shp["c"], f32), "n": zeros(shp["n"], f32),
+                "m": zeros(shp["m"], f32).fill_(-1e30)}
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelCfg, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict[str, torch.Tensor]:
-    """Per-layer KV cache, stacked as the reference stacks a uniform stack:
-    ``{"k": (L, B, T, HK, dh), "v": ...}``, zeros of ``dtype`` (bf16 by
-    default, whatever the model's dtype) on ``device`` (default the GPU).
+               dtype=torch.bfloat16, device=None) -> Any:
+    """Per-layer decode state on ``device`` (default the GPU), structured
+    as the reference's: a uniform scanned stack stacks each tensor on a
+    leading L axis (``{"k", "v"}`` or, for MLA, ``{"c_kv", "k_rope"}``,
+    each (L, B, T, ...)); a heterogeneous stack is a list of per-layer
+    dicts.  Caches and convolution states are zeros of ``dtype`` (bf16 by
+    default, whatever the model's dtype); recurrent states are float32,
+    their running maxima ``m`` filled with -1e30.
     """
     check_supported(cfg)
-    k_shp, v_shp = attention.cache_shape(cfg, batch, max_len)
     dev = resolve_device(device)
-    return {"k": torch.zeros((cfg.n_layers, *k_shp), dtype=dtype, device=dev),
-            "v": torch.zeros((cfg.n_layers, *v_shp), dtype=dtype, device=dev)}
+    if cfg.scan_layers and cfg.uniform_pattern:
+        return _layer_cache(cfg, cfg.block_pattern[0], batch, max_len,
+                            dtype, dev, lead=(cfg.n_layers,))
+    return [_layer_cache(cfg, cfg.block_kind(i), batch, max_len, dtype, dev)
+            for i in range(cfg.n_layers)]
 
 
-def _block_decode(p: Block, x, layer_cache: tuple, pos, cfg: ModelCfg,
-                  active=None):
+def _block_decode(p: Block, x, cache: dict, pos, kind: str, cfg: ModelCfg,
+                  active=None, mesh=None):
+    """One block's decode step; ``cache`` (this layer's dict of tensors) is
+    updated in place.  A recurrent block keeps the state of inactive
+    slots, as the reference freezes it."""
     h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
-    a, _ = attention.decode_attention(p.attn, h, layer_cache, pos, cfg,
-                                      active=active)
-    x = x + a
-    h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
-    return x + layers.mlp(p.mlp, h2)
+    if kind in ("attn", "local"):
+        if cfg.mla is not None:
+            a, _ = mla.decode_attention(p.attn, h, (cache["c_kv"],
+                                                    cache["k_rope"]),
+                                        pos, cfg, active=active)
+        else:
+            a, _ = attention.decode_attention(
+                p.attn, h, (cache["k"], cache["v"]), pos, cfg,
+                local=(kind == "local"), active=active)
+        x = x + a
+        h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
+        if cfg.moe is not None:
+            f, _ = moe.moe_block(p.moe, h2, cfg, mesh)
+        else:
+            f = layers.mlp(p.mlp, h2)
+        return x + f
+    if kind == "rglru":
+        a, new = rglru.block_decode(p.rec, h, cache, cfg)
+        x = x + a
+        x = x + layers.mlp(p.mlp, layers.rmsnorm(p.norm2, x, cfg.norm_eps))
+    elif kind == "mlstm":
+        a, new = xlstm.mlstm_block_decode(p.xl, h, cache, cfg)
+        x = x + a
+    elif kind == "slstm":
+        a, new = xlstm.slstm_block_decode(p.xl, h, cache, cfg)
+        x = x + a
+    else:
+        raise ValueError(kind)
+    for name, val in new.items():
+        if active is not None:
+            mask = torch.as_tensor(active, dtype=torch.bool,
+                                   device=x.device)
+            val = torch.where(mask.reshape((-1,) + (1,) * (val.ndim - 1)),
+                              val, cache[name])
+        cache[name].copy_(val)
+    return x
 
 
 @torch.no_grad()
-def decode_step(params: LM, cfg: ModelCfg, cache: dict[str, torch.Tensor],
-                tokens, pos, active=None) -> tuple[torch.Tensor, Any]:
+def decode_step(params: LM, cfg: ModelCfg, cache, tokens, pos, active=None,
+                mesh=None) -> tuple[torch.Tensor, Any]:
     """One serving step: tokens (B, 1) + caches at ``pos`` (scalar or (B,)
     per-slot positions) -> (logits (B, 1, vocab_padded), cache).
-    ``active``: (B,) bool continuous-batching mask; inactive slots leave the
-    cache untouched.  The cache is updated in place and returned.
+    ``active``: (B,) bool continuous-batching mask; inactive slots leave
+    the cache and recurrent state untouched.  ``mesh``: as for
+    :func:`forward`.  The cache (either structure of :func:`init_cache`)
+    is updated in place and returned.
     """
     tokens = torch.as_tensor(tokens, device=params.device).long()
     x = params.embed[tokens].to(model_dtype(cfg))
     for i, blk in enumerate(params.blocks):
-        x = _block_decode(blk, x, (cache["k"][i], cache["v"][i]), pos, cfg,
-                          active)
+        if isinstance(cache, dict):                  # stacked (L, ...) views
+            layer = {name: t[i] for name, t in cache.items()}
+        else:
+            layer = cache[i]
+        x = _block_decode(blk, x, layer, pos, cfg.block_kind(i), cfg,
+                          active, mesh)
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return x @ _head(params, cfg), cache

@@ -14,6 +14,7 @@ cache through :class:`repro_torch.serve.am_service.AMService` — see the
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -30,14 +31,18 @@ class Engine:
     device: torch.device
     max_len: int
     batch: int
-    cache: dict = None
+    cache: Any = None                 # either structure of init_cache
     pos: np.ndarray = None            # (B,) per-slot positions (host-side)
+    mesh: Any = None
 
     @classmethod
     def create(cls, cfg: ModelCfg, params: transformer.LM, *, batch: int = 4,
-               max_len: int = 256, device=None) -> "Engine":
+               max_len: int = 256, device=None, mesh=None) -> "Engine":
         """An engine of ``batch`` slots over ``params`` on ``device``
-        (default the GPU), where the parameters must already live."""
+        (default the GPU), where the parameters must already live.
+        ``mesh`` is passed to every decode step: an ``ep`` config's MoE
+        layers decode expert-parallel over its ``model`` axis, as the
+        reference's engine decodes on its mesh."""
         dev = resolve_device(device)
         if params.device.type != dev.type or (
                 dev.index is not None and params.device != dev):
@@ -46,7 +51,7 @@ class Engine:
                                        device=params.device)
         return cls(cfg=cfg, params=params, device=params.device,
                    max_len=max_len, batch=batch, cache=cache,
-                   pos=np.zeros((batch,), np.int32))
+                   pos=np.zeros((batch,), np.int32), mesh=mesh)
 
     # -- core step -------------------------------------------------------------
 
@@ -62,7 +67,8 @@ class Engine:
         logits, self.cache = transformer.decode_step(
             self.params, self.cfg, self.cache, tok,
             torch.as_tensor(self.pos, device=self.device),
-            torch.as_tensor(np.asarray(active), device=self.device))
+            torch.as_tensor(np.asarray(active), device=self.device),
+            self.mesh)
         self.pos = self.pos + np.asarray(active).astype(np.int32)
         return logits[:, 0, :self.cfg.vocab_size].float().cpu().numpy()
 

@@ -63,13 +63,19 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def loss_fn(params, cfg: ModelCfg, batch) -> tuple[torch.Tensor, dict]:
+def loss_fn(params, cfg: ModelCfg, batch,
+            mesh=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy (fp32 logits path), plus the aux loss.
+
+    ``batch["embeds"]``, where present, is a stub frontend's prefix; its
+    positions are not scored.  ``mesh`` goes to the forward (the MoE
+    layers of an ``ep`` config run expert-parallel on it).
 
     Returns (loss + AUX_LOSS_WEIGHT * aux, metrics); metrics ``loss``,
     ``aux`` and ``tokens`` are 0-d tensors.
     """
-    logits, aux = transformer.forward(params, cfg, batch["tokens"])
+    logits, aux = transformer.forward(params, cfg, batch["tokens"],
+                                      batch.get("embeds"), mesh)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     # stub-frontend prefixes are not scored
     prefix = logits.shape[1] - labels.shape[1]
@@ -86,9 +92,9 @@ def loss_fn(params, cfg: ModelCfg, batch) -> tuple[torch.Tensor, dict]:
     return loss + AUX_LOSS_WEIGHT * aux, metrics
 
 
-def _grads(params, cfg: ModelCfg, batch):
+def _grads(params, cfg: ModelCfg, batch, mesh=None):
     """(gradients as the list of ``params``' leaves, metrics)."""
-    total, metrics = loss_fn(params, cfg, batch)
+    total, metrics = loss_fn(params, cfg, batch, mesh)
     grads = torch.autograd.grad(total, opt.tree_leaves(params))
     return list(grads), metrics
 
@@ -104,13 +110,13 @@ class TrainStep:
     """``(state, batch) -> (state, metrics)``, in two halves that a caller
     may also run apart (to time them): :meth:`grads` and :meth:`update`."""
 
-    def __init__(self, cfg: ModelCfg, opt_cfg: opt.OptCfg):
-        self.cfg, self.opt_cfg = cfg, opt_cfg
+    def __init__(self, cfg: ModelCfg, opt_cfg: opt.OptCfg, mesh=None):
+        self.cfg, self.opt_cfg, self.moe_mesh = cfg, opt_cfg, mesh
 
     def grads(self, state: TrainState, batch):
         """(gradients, metrics) of ``batch`` at ``state``'s weights."""
         return _grads(state.params, self.cfg,
-                      to_device(batch, state.step.device))
+                      to_device(batch, state.step.device), self.moe_mesh)
 
     def update(self, state: TrainState, grads, metrics):
         """Apply ``grads``: the state, updated in place, and the metrics
@@ -121,10 +127,13 @@ class TrainStep:
         return self.update(state, *self.grads(state, batch))
 
 
-def make_train_step(cfg: ModelCfg, opt_cfg: opt.OptCfg = opt.OptCfg()
-                    ) -> TrainStep:
-    """Baseline train step: (state, batch) -> (state, metrics)."""
-    return TrainStep(cfg, opt_cfg)
+def make_train_step(cfg: ModelCfg, opt_cfg: opt.OptCfg = opt.OptCfg(),
+                    mesh=None) -> TrainStep:
+    """Baseline train step: (state, batch) -> (state, metrics).  ``mesh``
+    goes to the forward, as the reference's step passes its mesh: an
+    ``ep`` config's MoE layers run expert-parallel on its ``model``
+    axis."""
+    return TrainStep(cfg, opt_cfg, mesh)
 
 
 class CompressedTrainStep(TrainStep):

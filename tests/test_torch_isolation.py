@@ -63,6 +63,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.kernels.flash_attention, repro_torch.convert\n"
         "import repro_torch.configs.registry, repro_torch.models.layers\n"
         "import repro_torch.models.attention, repro_torch.models.transformer\n"
+        "import repro_torch.models.moe, repro_torch.models.mla\n"
+        "import repro_torch.models.rglru, repro_torch.models.xlstm\n"
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.tcam, repro_torch.tcam.masks\n"
@@ -201,6 +203,18 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
                                                       dtype=torch.int64))
     launch_serve.main(["--device", "cpu", "--requests", "2", "--max-new",
                        "2"])
+    for arch in ("deepseek-v2-lite-16b", "recurrentgemma-2b", "xlstm-125m"):
+        launch_serve.main(["--device", "cpu", "--arch", arch, "--requests",
+                           "2", "--max-new", "2"])
+    vlm = get_config("pixtral_12b", smoke=True)
+    vlm = dataclasses.replace(vlm, parallel=dataclasses.replace(
+        vlm.parallel, attn_impl="flash"))
+    with torch.no_grad():
+        transformer.forward(
+            transformer.init_params(vlm, torch.Generator()), vlm,
+            torch.zeros((1, 8), dtype=torch.int64),
+            torch.zeros((1, vlm.n_prefix_embeds,
+                         transformer.STUB_FRONTEND_DIM)))
     assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,
                                "cam_pack": 0}
     assert enc_kernel.launches == {"hdc_encode": 0}

@@ -150,17 +150,6 @@ def test_init_params_draws_truncated_normals():
     assert torch.equal(model.final_norm.scale, torch.ones(cfg.d_model))
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "deepseek_v2_lite_16b",
-                                  "recurrentgemma_2b", "xlstm_125m",
-                                  "pixtral_12b", "musicgen_medium"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(cfg, 1, 8, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
