@@ -94,7 +94,15 @@ change to a model family: ``phase_device()``, ``phase_build()`` and
    falling, the weights changed, ``grad_norm`` finite; it prints the
    median step over steps 2-6 split into forward + backward and optimizer
    by CUDA events, tokens/s and the model FLOP/s share of the bf16 dense
-   peak (6 x params x tokens, the recompute not counted);
+   peak (``roofline.model.model_flops``, the recompute not counted);
+   ``train_fsdp`` holds the sharded AdamW update bitwise to the unsharded
+   one on yi-6b at full width and 4 layers (``LocalMesh((2, 1), ("data",
+   "model"))``: master, m, v, bf16 weights and ``grad_norm``), then runs
+   ``train_yi6b``'s 6 steps through ``ShardedTrainStep`` with the batch
+   split over ``data`` = 2 (step-1 loss within 1e-3 of ``train_yi6b``'s,
+   losses falling, weights changed), split into forward + backward, slice
+   update and weight gather, and prints full-depth yi-6b's per-rank state
+   at fsdp widths 1, 2, 4 and 8 as arithmetic from ``state_specs``;
    ``train_card_vs_cpu`` runs the float32 smoke config's step 3 times on
    the card and on the CPU from the same state and batches (losses within
    rtol 1e-4, parameters within 1e-5); ``train_loop`` runs
@@ -172,13 +180,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20231007
 
-# H100 SXM peaks from the data sheet, dense: HBM3 bytes/s, int8 ops/s and
-# float32 FLOP/s on the CUDA cores (no tensor cores).
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12       # tensor cores, dense
-TF32_OPS_PER_S = 495e12       # tensor cores, dense
+# The H100's peaks (HBM bytes/s, int8, bf16, TF32 and float32 rates) are
+# repro_torch.roofline.model's, imported where a bound is computed.
 
 WIDTH, BITS = 256, 3
 CAPACITY, ROWS, CHUNK = 1 << 20, 1_000_000, 65_536
@@ -258,6 +261,22 @@ LM_LOGIT_REL_L2 = 2.5e-2
 STATE_BYTES_PER_PARAM = 16
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 2, 2048, 6
 TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "train_ckpt")
+# the data-parallel step with the optimizer state sharded over data
+# (train_fsdp): the bitwise optimizer gate at full width and 4 layers
+# (0.954 B params, two states of 15.3 GB at once), then train_yi6b's run
+# with its batch split over data = 2 (one state at a time: 48.5 GB does
+# not fit twice), and the per-rank state of full-depth yi-6b at each of
+# FSDP_WIDTHS by arithmetic from state_specs.  Each step's loss and
+# grad_norm are held to train_yi6b's: step 1's within FSDP_FIRST_RTOL (the
+# same weights and batch; the slices' bf16 forwards at B = 1 round apart
+# from the one at B = 2; read on an H100 80GB HBM3 at 700 W: 1.1e-7 and
+# 2.3e-6), which a gradient off by a constant factor would miss by far;
+# later steps within FSDP_STEP_RTOL, since the bf16 gradient summed over
+# two slices rounds apart from the whole batch's and the weights drift
+# apart from step 2 on (read at most 9.2e-4)
+FSDP_WIDTH, FSDP_GATE_LAYERS = 2, 4
+FSDP_FIRST_RTOL, FSDP_STEP_RTOL = 2e-5, 5e-3
+FSDP_WIDTHS = (1, 2, 4, 8)
 # card against CPU, float32 smoke config, 3 steps under the default OptCfg
 # (warmup 100: the parameters move by about 3e-6 a step)
 CARD_CPU_LOSS_RTOL, CARD_CPU_PARAM_ATOL = 1e-4, 1e-5
@@ -305,14 +324,19 @@ def check(cond, msg):
 # phase 1: device and build
 # ---------------------------------------------------------------------------
 
-def phase_device():
-    import torch
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    card = _card()
     print(card)
     return card
 
@@ -2106,6 +2130,7 @@ def _train_yi6b():
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data import lm_synth
+    from repro_torch.roofline import model as roof
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     from repro_torch.models import transformer
@@ -2162,14 +2187,20 @@ def _train_yi6b():
     med = {k: float(np.median([r[k] for r in tail]))
            for k in ("step_s", "fwd_bwd_s", "optimizer_s", "host_s")}
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    share = 6 * n_params * tokens / med["step_s"] / BF16_OPS_PER_S
+    flops = _train_model_flops(cfg)
+    share = flops / med["step_s"] / roof.PEAK_FLOPS_BF16
+    share_lm = 6 * n_params * tokens / med["step_s"] / roof.PEAK_FLOPS_BF16
     print(f"  train_yi6b: losses {[round(x, 4) for x in losses]}; median of "
           f"steps 2-{TRAIN_STEPS}: {med['step_s']:.4f} s a step "
           f"(forward + backward {med['fwd_bwd_s']:.4f} s, optimizer "
           f"{med['optimizer_s']:.4f} s; host clock {med['host_s']:.4f} s), "
           f"{tokens / med['step_s']:.0f} tokens/s, model FLOP/s "
-          f"6 x params x tokens = {share:.4f} of the bf16 dense peak "
-          f"(989 TFLOP/s; the recompute not counted)")
+          f"(roofline.model.model_flops, 6 x {flops / 6 / tokens:.0f} "
+          f"params x tokens) = {share:.4f} of the bf16 dense peak "
+          f"({roof.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s; the recompute not "
+          f"counted); 6 x the LM's {n_params} parameters gives "
+          f"{share_lm:.4f}: the reference's count leaves out the "
+          f"{n_params - flops / 6 / tokens:.0f} norm scales")
     print(f"  train_yi6b: one more step under torch.profiler: device busy "
           f"{prof['device_ms']:.1f} ms of {prof['wall_ms']:.1f} ms; by op "
           f"(self device ms, calls): " + "; ".join(
@@ -2184,9 +2215,244 @@ def _train_yi6b():
                  "median_optimizer_s": med["optimizer_s"],
                  "median_host_s": med["host_s"],
                  "tokens_per_s": tokens / med["step_s"],
-                 "bf16_peak_share": share, "free_bytes_before": free})
+                 "model_flops": flops, "bf16_peak_share": share,
+                 "bf16_peak_share_6_n_lm_params": share_lm,
+                 "free_bytes_before": free})
     del state, step
     return _mem_after("train_yi6b", path)
+
+
+def _train_model_flops(cfg):
+    """The reference's MODEL_FLOPS of one training step at B = TRAIN_BATCH,
+    S = TRAIN_SEQ (``roofline.model.model_flops``: 6 x its parameter
+    count x tokens, the norm scales left out)."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.roofline import model as roof
+    return roof.model_flops(cfg, ShapeCfg("train", TRAIN_SEQ, TRAIN_BATCH,
+                                          "train"), "train")
+
+
+def _same_opt_state(a, b):
+    """Whether two optimizer states hold bitwise the same master, m and v
+    (a sharded one's slices read whole)."""
+    import torch
+    from repro_torch.train import optimizer as opt
+    for name in ("master", "m", "v"):
+        for (xs, _), (ys, _) in zip(opt.groups(getattr(a, name)),
+                                    opt.groups(getattr(b, name))):
+            for x, y in zip(xs, ys, strict=True):
+                x = x.local if isinstance(x, opt.Shard) else x
+                y = y.local if isinstance(y, opt.Shard) else y
+                if not torch.equal(x, y):
+                    return False
+    return True
+
+
+def _fsdp_gate(card):
+    """(a) one gradient of yi-6b at full width and FSDP_GATE_LAYERS
+    layers, applied twice through the unsharded ``apply`` and through the
+    sharded one on ``LocalMesh((2, 1), ("data", "model"))``, from two
+    states drawn from the same seed: master, m, v, the bf16 weights and
+    ``grad_norm`` bitwise equal."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_synth
+    from repro_torch.dist import LocalMesh
+    from repro_torch.dist.specs import make_rules
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=FSDP_GATE_LAYERS)
+    mesh = LocalMesh((FSDP_WIDTH, 1), ("data", "model"))
+    rules = make_rules(mesh, cfg.parallel.layout)
+    ocfg = opt.OptCfg(warmup_steps=2)
+    a, b = (ts.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED)) for _ in range(2))
+    n_params = sum(p.numel() for p in a.params.parameters())
+    check(all(torch.equal(x, y) for x, y in
+              zip(a.params.parameters(), b.params.parameters())),
+          "train_fsdp: two draws from one seed differ")
+    b.opt = opt.shard(b.opt, b.params, transformer.param_specs(
+        cfg, rules, for_opt=True), mesh, rules.fsdp)
+    check(opt.is_sharded(b.opt), "train_fsdp: the state is not sharded")
+    data = lm_synth.LMDataCfg(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=SEED)
+    grads, _ = ts.make_train_step(cfg, ocfg).grads(a, lm_synth.batch_at(
+        data, 0))
+    norms = []
+    for _ in range(2):
+        _, a.opt, sa = opt.apply(ocfg, a.opt, grads, a.params)
+        _, b.opt, sb = opt.apply(ocfg, b.opt, grads, b.params)
+        norms.append((float(sa["grad_norm"]), float(sb["grad_norm"])))
+        check(torch.equal(sa["grad_norm"], sb["grad_norm"]),
+              f"train_fsdp: grad_norm {norms[-1]}")
+    check(all(torch.equal(x, y) for x, y in
+              zip(a.params.parameters(), b.params.parameters())),
+          "train_fsdp: bf16 weights differ")
+    check(_same_opt_state(a.opt, b.opt), "train_fsdp: master/m/v differ")
+    print(f"  train_fsdp (a): {cfg.name} full width, {FSDP_GATE_LAYERS} "
+          f"layers, {n_params / 1e9:.3f} B params; one gradient (B = "
+          f"{TRAIN_BATCH}, S = {TRAIN_SEQ}) applied twice, unsharded and "
+          f"sharded over data = {FSDP_WIDTH}: master, m, v, bf16 weights "
+          f"and grad_norm {norms[0][0]:.6g} bitwise equal, on {card}")
+    del a, b, grads
+    return {"gate_layers": FSDP_GATE_LAYERS, "gate_params": n_params,
+            "gate_bitwise": True, "gate_grad_norms": norms}
+
+
+def _fsdp_per_rank(card):
+    """(c) the bytes each rank holds for full-depth yi-6b at each of
+    FSDP_WIDTHS: bf16 weights and gradients whole, master, m and v the
+    largest slice ``state_specs`` gives a rank (arithmetic, no reading)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import LocalMesh
+    from repro_torch.dist.specs import make_rules
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    full = get_config(LM_ARCH)
+    lm = transformer.LM(full, device="meta")
+    n = sum(p.numel() for p in lm.parameters())
+    out = {}
+    for w in FSDP_WIDTHS:
+        mesh = LocalMesh((w, 1), ("data", "model"))
+        rules = make_rules(mesh, full.parallel.layout)
+        specs = ts.state_specs(full, rules).opt.master
+        held = 0
+        for p, spec in zip(lm.parameters(), opt.leaf_specs(lm, specs)):
+            d = opt.axis_dim(spec, rules.fsdp) if w > 1 else None
+            held += (p.numel() if d is None else
+                     torch.tensor_split(p, w, d)[0].numel())
+        out[w] = {"bytes": 4 * n + 12 * held, "state_params_held": held}
+    # summing one leaf's gradient over the ranks (ShardedTrainStep._sum's
+    # reduce-scatter and all-gather) holds three more bf16 copies of it
+    transient = 3 * 2 * max(p.numel() for p in lm.parameters())
+    print(f"  train_fsdp (c): arithmetic from state_specs, not a reading: "
+          f"full-depth {full.name} ({n / 1e9:.2f} B params) holds per rank "
+          + ", ".join(f"{v['bytes'] / 1e9:.1f} GB at fsdp {w}"
+                      for w, v in out.items())
+          + f" (bf16 weights and gradients whole, 4 B a param; float32 "
+          f"master, m and v sliced, 12 B a held param; activations not "
+          f"counted), plus {transient / 1e9:.2f} GB for a moment above fsdp "
+          f"1 (three bf16 copies of the largest leaf while its gradient is "
+          f"summed); the card ({card}) has 80 GB")
+    return {"per_rank_bytes_by_width": out, "params_full": n,
+            "transient_sum_bytes": transient}
+
+
+def _train_fsdp(yi6b, card):
+    """``train_fsdp``: (a) the optimizer's bitwise gate; (b) train_yi6b's
+    run through the data-parallel step on ``LocalMesh((2, 1), ("data",
+    "model"))``, the batch split over data, the state sharded, each step
+    split into forward + backward, the optimizer's slice update and the
+    weight gather; (c) the per-rank arithmetic; every line names the
+    card."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_synth
+    from repro_torch.dist import LocalMesh
+    from repro_torch.dist.specs import make_rules
+    from repro_torch.roofline import model as roof
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    free = _mem_before("train_fsdp")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    mesh = LocalMesh((FSDP_WIDTH, 1), ("data", "model"))
+    rules = make_rules(mesh, cfg.parallel.layout, batch_size=TRAIN_BATCH)
+    data = lm_synth.LMDataCfg(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=SEED)
+
+    def run():
+        out = _fsdp_gate(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = ts.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED))
+        step = ts.make_train_step(cfg, opt.OptCfg(warmup_steps=2), mesh,
+                                  rules)
+        check(isinstance(step, ts.ShardedTrainStep) and rules.dp == ("data",),
+              f"train_fsdp: step {type(step).__name__}, dp {rules.dp}")
+        step.shard_state(state)
+        before = _param_sample(state)
+        rows = []
+        for i in range(TRAIN_STEPS):
+            batch = lm_synth.batch_at(data, i)
+            e0, e1, e2, e3 = _events(4)
+            e0.record()
+            grads, metrics = step.grads(state, batch)
+            e1.record()
+            state.opt, stats = opt.update_slices(step.opt_cfg, state.opt,
+                                                 grads, state.params)
+            e2.record()
+            opt.write_weights(state.opt, state.params)
+            e3.record()
+            state.step.add_(1)
+            del grads
+            e3.synchronize()
+            rows.append({"step_s": e0.elapsed_time(e3) / 1e3,
+                         "fwd_bwd_s": e0.elapsed_time(e1) / 1e3,
+                         "update_s": e1.elapsed_time(e2) / 1e3,
+                         "gather_s": e2.elapsed_time(e3) / 1e3,
+                         "loss": float(metrics["loss"]),
+                         "grad_norm": float(stats["grad_norm"])})
+        out["changed"] = _changed(before, state)
+        out["sharded"] = opt.is_sharded(state.opt)
+        del state, step
+        return rows, out
+
+    (rows, out), path = _run_path("train_fsdp", run, {})
+    losses = [r["loss"] for r in rows]
+    ref_loss = yi6b["steps"][0]["loss"]
+    rels = []
+    for i, (r, ref) in enumerate(zip(rows, yi6b["steps"], strict=True)):
+        tol = FSDP_FIRST_RTOL if i == 0 else FSDP_STEP_RTOL
+        for key in ("loss", "grad_norm"):
+            rels.append(abs(r[key] - ref[key]) / abs(ref[key]))
+            check(rels[-1] <= tol, f"train_fsdp: step {i + 1} {key} "
+                  f"{r[key]} against train_yi6b's {ref[key]} (rel "
+                  f"{rels[-1]:.3e}, limit {tol})")
+    rel = rels[0]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train_fsdp: losses {losses}")
+    check(out["changed"] and out["sharded"],
+          "train_fsdp: parameters unchanged or state not sharded")
+    tail = rows[1:]
+    med = {k: float(np.median([r[k] for r in tail]))
+           for k in ("step_s", "fwd_bwd_s", "update_s", "gather_s")}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = _train_model_flops(cfg) / med["step_s"] / roof.PEAK_FLOPS_BF16
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  train_fsdp (b): {cfg.name} full width, {TRAIN_LAYERS} layers, "
+          f"B = {TRAIN_BATCH} split over data = {FSDP_WIDTH}, S = "
+          f"{TRAIN_SEQ}; losses {[round(x, 4) for x in losses]}, step 1 "
+          f"loss within {rel:.2e} of train_yi6b's {ref_loss:.4f} and "
+          f"grad_norm within {rels[1]:.2e} (limit {FSDP_FIRST_RTOL}), "
+          f"steps 2-{TRAIN_STEPS} loss and grad_norm within "
+          f"{max(rels[2:]):.2e} (limit {FSDP_STEP_RTOL}); median of "
+          f"steps 2-{TRAIN_STEPS} on {card}: {med['step_s']:.4f} s a step "
+          f"(forward + backward {med['fwd_bwd_s']:.4f} s, slice update "
+          f"{med['update_s']:.4f} s, weight gather {med['gather_s']:.4f} s), "
+          f"{tokens / med['step_s']:.0f} tokens/s, {share:.4f} of the bf16 "
+          f"peak (model_flops), peak {peak / 1e9:.2f} GB; train_yi6b: "
+          f"{yi6b['median_step_s']:.4f} s (forward + backward "
+          f"{yi6b['median_fwd_bwd_s']:.4f} s, optimizer "
+          f"{yi6b['median_optimizer_s']:.4f} s), "
+          f"{yi6b['tokens_per_s']:.0f} tokens/s, {yi6b['bf16_peak_share']:.4f}"
+          f", peak {yi6b['peak_bytes'] / 1e9:.2f} GB")
+    out.update(_fsdp_per_rank(card))
+    path.update({"card": card, "layers": TRAIN_LAYERS, "batch": TRAIN_BATCH,
+                 "seq": TRAIN_SEQ, "fsdp": FSDP_WIDTH, "steps": rows,
+                 "first_loss_rel_to_train_yi6b": rel,
+                 "loss_grad_norm_rel_to_train_yi6b": rels,
+                 "median_step_s": med["step_s"],
+                 "median_fwd_bwd_s": med["fwd_bwd_s"],
+                 "median_update_s": med["update_s"],
+                 "median_gather_s": med["gather_s"],
+                 "tokens_per_s": tokens / med["step_s"],
+                 "bf16_peak_share": share, "free_bytes_before": free, **out})
+    return _mem_after("train_fsdp", path)
 
 
 def _train_card_vs_cpu():
@@ -2443,9 +2709,10 @@ def _pipeline_fwd():
     return _mem_after("pipeline_fwd", path)
 
 
-def phase_train():
+def phase_train(card=None):
     """Phase 4c: the training paths, after phase 4b's weights are gone."""
     paths = {"train_yi6b": _train_yi6b()}
+    paths["train_fsdp"] = _train_fsdp(paths["train_yi6b"], card or _card())
     paths["train_card_vs_cpu"] = _train_card_vs_cpu()
     paths["train_loop"] = _train_loop()
     paths["train_compressed"] = _train_compressed()
@@ -3038,7 +3305,8 @@ def _timed_once(fn):
 
 def _bound_parts(bytes_moved, ops):
     """(ms at the memory rate, ms at the int8 operation rate)."""
-    return bytes_moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    from repro_torch.roofline import model as roof
+    return roof.bound_ms(bytes_moved, ops, roof.PEAK_OPS_INT8)
 
 
 def _time_dense(q8, t8, levels, groups, err):
@@ -3226,7 +3494,8 @@ def phase_timing(run, err):
 
 def _fp32_bound(bytes_moved, ops):
     """(ms at the memory rate, ms at the float32 CUDA-core rate)."""
-    return bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    from repro_torch.roofline import model as roof
+    return roof.bound_ms(bytes_moved, ops, roof.PEAK_FLOPS_FP32)
 
 
 def _time_encode(x, proj, groups, err):
@@ -3241,6 +3510,7 @@ def _time_encode(x, proj, groups, err):
     same work in float32 on the CUDA cores."""
     from repro_torch.core import quantize as q
     from repro_torch.kernels.hdc_encode import kernel, ref
+    from repro_torch.roofline import model as roof
     (b, n), d = x.shape, proj.shape[1]
     thr = q.gaussian_thresholds(3, device=x.device)
     plain_ms, want = _timed_once(lambda: ref.encode_quantize(x, proj, thr))
@@ -3256,8 +3526,8 @@ def _time_encode(x, proj, groups, err):
     matmul_device_ms = _graph_ms(lambda: x @ proj, 20)
     t = thr.numel()
     bytes_moved = 4 * (b * n + n * d + t + b * d)
-    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_o = 3 * 2 * b * n * d / TF32_OPS_PER_S * 1e3
+    t_b, t_o = roof.bound_ms(bytes_moved, 3 * 2 * b * n * d,
+                             roof.PEAK_FLOPS_TF32)
     fp32_b, fp32_o = _fp32_bound(bytes_moved,
                                  2 * b * n * d + 2 * b * n + 2 * b * d * t)
     return {"B": b, "n": n, "D": d, "bits": 3, "groups": groups, "ms": ms,
@@ -3331,6 +3601,7 @@ def _time_flash(launches, err):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.roofline import model as roof
     b, s, h, hk, dh = FLASH_PATH_SHAPE
     q, k, v = (x.transpose(1, 2).reshape(-1, s, dh).contiguous()
                for x in _flash_inputs((b, s, s, h, hk, dh), torch.bfloat16,
@@ -3347,12 +3618,12 @@ def _time_flash(launches, err):
     q4, k4, v4 = (x.view(b, -1, s, dh) for x in (q, k, v))
     lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True, enable_gqa=True), 10)
-    t_b = 2 * (2 * b * h * s * dh + 2 * b * hk * s * dh) / HBM_BYTES_PER_S
-    t_o = 2 * b * h * s * s * dh / BF16_OPS_PER_S
+    t_b, t_o = roof.bound_ms(2 * (2 * b * h * s * dh + 2 * b * hk * s * dh),
+                             2 * b * h * s * s * dh, roof.PEAK_FLOPS_BF16)
     return {"B": b, "S": s, "H": h, "HK": hk, "dh": dh, "dtype": "bfloat16",
             "causal": True, "groups": launches, "ms": ms,
             "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bytes_ms": t_b * 1e3, "ops_ms": t_o * 1e3}
+            "library_ms": lib_ms, "bytes_ms": t_b, "ops_ms": t_o}
 
 
 def phase_timing_lm(paths, err):
@@ -3397,7 +3668,7 @@ def main() -> int:
         print("phase 4b: the dense LM at full width")
         lm_paths = phase_lm()
         print("phase 4c: training")
-        train_paths = phase_train()
+        train_paths = phase_train(card)
         print("phase 4d: the other model families at full width")
         family_paths = phase_families()
         paths = {**run["paths"], **tcam_paths, **app_paths, **lm_paths,

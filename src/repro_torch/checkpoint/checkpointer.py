@@ -47,6 +47,13 @@ the (L, ...) stack of the layers' tensors
 copies a save makes, and a restore unstacks it on the host before each
 layer goes to the device, so no stacked copy of a layer's tensors exists
 on the card.
+
+An optimizer state sharded over a mesh axis
+(:func:`repro_torch.train.optimizer.shard`) is written whole: each
+:class:`~repro_torch.train.optimizer.Shard` leaf is gathered from its
+slices (an all-gather on a process-group mesh, so every rank of it saves),
+and the files are those of the unsharded state.  A restore into a sharded
+template splits each leaf as its template is split.
 """
 
 from __future__ import annotations
@@ -149,6 +156,8 @@ def _to_host(x, copy: bool) -> tuple[np.ndarray, str]:
     if isinstance(x, layers.LayerStack):
         parts = [_to_host(p, copy=False) for p in x.parts]
         return np.stack([a for a, _ in parts]), parts[0][1]
+    if isinstance(x, optimizer.Shard):          # the whole, gathered
+        return _to_host(x.full(), copy)
     if isinstance(x, torch.Tensor):
         t = x.detach()
         bf16 = t.dtype == torch.bfloat16
@@ -173,6 +182,12 @@ def _from_disk(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(arr))
     return t if device.type == "cpu" else t.to(device)
+
+
+def _place(template, x: torch.Tensor):
+    """A restored whole tensor as ``template`` holds it: split as a
+    :class:`~repro_torch.train.optimizer.Shard` template is, else whole."""
+    return template.like(x) if isinstance(template, optimizer.Shard) else x
 
 
 def _write_synced(path: pathlib.Path, write) -> None:
@@ -329,7 +344,8 @@ class Checkpointer:
                         f"target {tuple(leaf.shape)}")
                 if isinstance(leaf, layers.LayerStack):  # unstacked on host
                     return layers.LayerStack(
-                        _from_disk(a, entry["dtype"], dev) for a in arr)
-                return _from_disk(arr, entry["dtype"], dev)
+                        _place(part, _from_disk(a, entry["dtype"], dev))
+                        for part, a in zip(leaf.parts, arr))
+                return _place(leaf, _from_disk(arr, entry["dtype"], dev))
 
             return tree_map_with_path(load, target), manifest["metadata"]

@@ -12,6 +12,11 @@ entries than its leaf has dimensions), and the arrays go to the searches
 of that mesh as they are.  No row count needs to divide the bank count.
 The reference instead materialises per-device shards and replicates the
 leaves whose rows do not divide the mesh.
+
+A training state restores whole, too: a
+:class:`~repro_torch.train.train_step.ShardedTrainStep` on the new mesh
+splits its optimizer state over that mesh's ``fsdp`` axis on its first
+update (or at once, through its ``shard_state``).
 """
 
 from __future__ import annotations

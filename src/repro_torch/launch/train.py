@@ -1,8 +1,9 @@
 """End-to-end training driver.
 
-Port of :mod:`repro.launch.train` on one device: real steps (synthetic
-data pipeline, AdamW, checkpoints, fault tolerance) on the GPU, or on the
-CPU with ``--device cpu``.  Like the reference it defaults to the smoke
+Port of :mod:`repro.launch.train`: real steps (synthetic data pipeline,
+AdamW, checkpoints, fault tolerance) on the GPU, or on the CPU with
+``--device cpu``; ``train(..., mesh=)`` runs them data-parallel with the
+optimizer state sharded over the mesh's ``data`` axis.  Like the reference it defaults to the smoke
 config (``--smoke`` is on; ``--full`` asks for the published geometry).
 
   python -m repro_torch.launch.train --arch yi-6b --steps 50 --batch 8 \\
@@ -24,6 +25,7 @@ from repro_torch.checkpoint.fault_tolerance import FaultTolerantLoop
 from repro_torch.configs.registry import ALIASES, get_config
 from repro_torch.data import lm_synth
 from repro_torch.device import resolve_device
+from repro_torch.dist.specs import make_rules
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import transformer
 from repro_torch.train import optimizer as opt
@@ -33,17 +35,27 @@ SEED = 0
 
 
 def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
-          ckpt_dir: str, lr: float = 3e-4, ckpt_every: int = 20,
+          ckpt_dir: str, lr: float = 3e-4, mesh=None, ckpt_every: int = 20,
           fault_injector=None, device=None, cfg=None):
     """Train ``arch`` for ``steps`` steps; returns (state, report, wall s).
 
-    ``cfg`` replaces the registry's config of ``arch`` (a depth-cut
-    config, say).  Weights are drawn from a generator seeded with
-    :data:`SEED` on ``device`` (default the GPU).
+    ``mesh`` (default ``make_test_mesh()``, one bank and one replica)
+    binds the rules, ``make_rules(mesh, layout, batch_size=batch)``, as
+    the reference's driver does: where its ``data`` axis is wider than 1
+    the step splits the batch over dp and shards the optimizer state over
+    ``data`` (:class:`~repro_torch.train.train_step.ShardedTrainStep`).
+    On a :class:`~repro_torch.dist.ProcessGroupMesh` every rank calls
+    this, each with its own ``ckpt_dir``.  ``cfg`` replaces the
+    registry's config of ``arch`` (a depth-cut config, say).  Weights are
+    drawn from a generator seeded with :data:`SEED` on ``device``
+    (default the GPU).
     """
     dev = resolve_device(device)
     if cfg is None:
         cfg = get_config(ALIASES.get(arch, arch), smoke=smoke)
+    if mesh is None:
+        mesh = make_test_mesh()
+    rules = make_rules(mesh, cfg.parallel.layout, batch_size=batch)
     data_cfg = lm_synth.LMDataCfg(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch)
     opt_cfg = opt.OptCfg(lr=lr, warmup_steps=max(steps // 10, 1),
@@ -66,7 +78,7 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
 
     ckpt = Checkpointer(ckpt_dir, keep=2)
     loop = FaultTolerantLoop(
-        step_fn=ts.make_train_step(cfg, opt_cfg, make_test_mesh()),
+        step_fn=ts.make_train_step(cfg, opt_cfg, mesh, rules),
         init_state=init_state,
         batch_fn=batch_fn, ckpt=ckpt, ckpt_every=ckpt_every,
         watchdog_s=600.0, fault_injector=fault_injector)

@@ -58,6 +58,20 @@ def init(generator, cfg: ModelCfg, dtype=torch.bfloat16,
     return a
 
 
+def specs(rules) -> dict:
+    """Weight specs: q, k, v column-parallel, the output row-parallel."""
+    return {"wq": rules.w2(), "wk": rules.w2(), "wv": rules.w2(),
+            "wo": rules.w2_row()}
+
+
+def _cache_spec(rules) -> tuple:
+    """(B, T, HK, dh) K or V cache: B on dp; heads on tp, or the sequence
+    on tp under cp."""
+    if rules.layout == "tp":
+        return (rules.dp, None, rules.tp, None)
+    return (rules.dp, rules.tp, None, None)
+
+
 def _kv_rep(cfg: ModelCfg) -> int:
     """Total KV replication: the reference's at a tensor-parallel width of
     1, where only the stored ``kv_replicate`` remains."""

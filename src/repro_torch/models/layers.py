@@ -2,8 +2,8 @@
 
 Port of :mod:`repro.models.layers`.  Weights keep the reference's
 (d_in, d_out) orientation and are applied as ``x @ W``; random draws take a
-``torch.Generator``.  The ``*_specs`` sharding functions of the reference
-belong to the sharding slice and are not here.
+``torch.Generator``.  :func:`mlp_specs` gives the MLP's weight specs as
+tuples of axis names (:mod:`repro_torch.dist.specs`).
 """
 
 from __future__ import annotations
@@ -165,6 +165,13 @@ def mlp_init(generator, d_model: int, d_ff: int, dtype=torch.bfloat16,
     for w in (m.w_gate, m.w_up, m.w_down):
         w.copy_(dense_init(generator, w.shape[0], w.shape[1], dtype, device))
     return m
+
+
+def mlp_specs(rules) -> dict:
+    """The MLP's weight specs: gate and up column-parallel, down
+    row-parallel."""
+    return {"w_gate": rules.w2(), "w_up": rules.w2(),
+            "w_down": rules.w2_row()}
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

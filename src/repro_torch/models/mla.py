@@ -59,6 +59,13 @@ def init(generator, cfg: ModelCfg, dtype=torch.bfloat16, device=None) -> MLA:
     return p
 
 
+def specs(rules) -> dict:
+    """Weight specs; the latent down-projection's small output (rank +
+    rope) stays unsharded."""
+    return {"wq": rules.w2(), "w_dkv": (rules.fsdp, None),
+            "w_uk": rules.w2(), "w_uv": rules.w2(), "wo": rules.w2_row()}
+
+
 def _project_q(params: MLA, x, cfg: ModelCfg, positions):
     m = cfg.mla
     b, s, _ = x.shape

@@ -70,6 +70,25 @@ def init(generator, cfg: ModelCfg, dtype=torch.bfloat16, device=None) -> MoE:
     return p
 
 
+def specs(cfg: ModelCfg, rules, for_opt: bool = False) -> dict:
+    """Expert-weight specs.
+
+    By default the experts lie on ``tp`` and D on ``fsdp``.  With
+    ``cfg.parallel.moe_zero1`` the weights lie on ``tp`` only, and the
+    optimizer state (``for_opt=True``) keeps the ``fsdp`` split, so the
+    state alone is sharded over ``data`` there.
+    """
+    if cfg.parallel.moe_zero1 and not for_opt:
+        s = {"router": (None, None), "w1": (rules.tp, None, None),
+             "w2": (rules.tp, None, None)}
+    else:
+        s = {"router": (None, None), "w1": (rules.tp, rules.fsdp, None),
+             "w2": (rules.tp, None, rules.fsdp)}
+    if cfg.moe.n_shared:
+        s["shared"] = layers.mlp_specs(rules)
+    return s
+
+
 def _route(router_w: torch.Tensor, x_flat: torch.Tensor, top_k: int):
     """(T, D) -> (gates (T,k) float32 normalised, experts (T,k) int64,
     probs (T,E) float32).

@@ -68,6 +68,14 @@ def init(generator, cfg: ModelCfg, dtype=torch.bfloat16,
     return p
 
 
+def specs(rules) -> dict:
+    """Weight specs: the recurrence width R on tp."""
+    return {"w_in_gate": rules.w2(), "w_in_x": rules.w2(),
+            "conv_w": (None, rules.tp), "w_r": rules.w2(),
+            "b_r": (rules.tp,), "w_i": rules.w2(), "b_i": (rules.tp,),
+            "lam": (rules.tp,), "w_out": rules.w2_row()}
+
+
 def _gates(params: RGLRU, x: torch.Tensor):
     r = torch.sigmoid((x @ params.w_r).float() + params.b_r)
     i = torch.sigmoid((x @ params.w_i).float() + params.b_i)

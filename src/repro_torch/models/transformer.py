@@ -198,6 +198,63 @@ def _dotted(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", x
 
 
+# ---------------------------------------------------------------------------
+# Sharding specs (tuples of mesh axis names, see repro_torch.dist.specs)
+# ---------------------------------------------------------------------------
+
+def _block_specs(cfg: ModelCfg, kind: str, rules,
+                 for_opt: bool = False) -> dict:
+    """Weight specs of one block of kind ``kind``, keyed as its parameters."""
+    s: dict[str, Any] = {"norm1": {"scale": (None,)}}
+    if kind in ("attn", "local"):
+        s["attn"] = (mla.specs(rules) if cfg.mla is not None
+                     else attention.specs(rules))
+        s["norm2"] = {"scale": (None,)}
+        if cfg.moe is not None:
+            s["moe"] = moe.specs(cfg, rules, for_opt=for_opt)
+        else:
+            s["mlp"] = layers.mlp_specs(rules)
+    elif kind == "rglru":
+        s["rec"] = rglru.specs(rules)
+        s["norm2"] = {"scale": (None,)}
+        s["mlp"] = layers.mlp_specs(rules)
+    elif kind in ("mlstm", "slstm"):
+        s["xl"] = (xlstm.mlstm_specs(rules) if kind == "mlstm"
+                   else xlstm.slstm_specs(rules))
+    return s
+
+
+def _stack_specs(tree):
+    """A spec tree with a leading replicated entry (the layer axis) on each
+    spec, as the reference's scanned stack carries it."""
+    if isinstance(tree, dict):
+        return {k: _stack_specs(v) for k, v in tree.items()}
+    return (None, *tree)
+
+
+def param_specs(cfg: ModelCfg, rules, for_opt: bool = False) -> dict:
+    """The reference's spec tree of the parameters: the tree of
+    :meth:`LM.reference_tree`, each leaf a spec tuple.  A scanned uniform
+    stack's blocks are one dict whose specs lead with ``None`` (the
+    layer axis); a heterogeneous stack's are a list of per-layer dicts.
+    ``for_opt`` gives the optimizer state's specs (they differ from the
+    weights' under ``moe_zero1``).  :func:`repro_torch.train.optimizer.
+    leaf_specs` maps the tree onto the LM's per-layer parameters."""
+    s: dict[str, Any] = {"embed": rules.embed(),
+                         "final_norm": {"scale": (None,)}}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = (rules.fsdp, rules.tp)
+    if cfg.frontend is not None:
+        s["frontend_proj"] = (None, None)
+    if cfg.scan_layers and cfg.uniform_pattern:
+        s["blocks"] = _stack_specs(_block_specs(cfg, cfg.block_pattern[0],
+                                                rules, for_opt))
+    else:
+        s["blocks"] = [_block_specs(cfg, cfg.block_kind(i), rules, for_opt)
+                       for i in range(cfg.n_layers)]
+    return s
+
+
 def init_params(cfg: ModelCfg, generator: torch.Generator) -> LM:
     """A randomly initialised :class:`LM`, drawn from ``generator`` onto its
     device.  The draws follow the reference's distributions, not its JAX
@@ -357,6 +414,35 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int,
                             dtype, dev, lead=(cfg.n_layers,))
     return [_layer_cache(cfg, cfg.block_kind(i), batch, max_len, dtype, dev)
             for i in range(cfg.n_layers)]
+
+
+def cache_specs(cfg: ModelCfg, rules) -> Any:
+    """The reference's spec tree of :func:`init_cache`'s cache: B on dp,
+    the head or state width on tp (or the sequence, under cp), a leading
+    ``None`` on a stacked uniform cache."""
+    def one_layer(kind: str, stacked: bool) -> dict:
+        lead = (None,) if stacked else ()
+        dp, tp = rules.dp, rules.tp
+        if kind in ("attn", "local"):
+            if cfg.mla is not None:
+                return {"c_kv": (*lead, dp, tp, None),
+                        "k_rope": (*lead, dp, tp, None)}
+            spec = attention._cache_spec(rules)
+            return {"k": (*lead, *spec), "v": (*lead, *spec)}
+        if kind == "rglru":
+            return {"h": (*lead, dp, tp), "conv": (*lead, dp, None, tp)}
+        if kind == "mlstm":
+            return {"c": (*lead, dp, None, None, None),
+                    "n": (*lead, dp, None, None), "m": (*lead, dp, None),
+                    "conv": (*lead, dp, None, tp)}
+        if kind == "slstm":
+            return {"c": (*lead, dp, None), "n": (*lead, dp, None),
+                    "m": (*lead, dp, None)}
+        raise ValueError(kind)
+
+    if cfg.scan_layers and cfg.uniform_pattern:
+        return one_layer(cfg.block_pattern[0], True)
+    return [one_layer(cfg.block_kind(i), False) for i in range(cfg.n_layers)]
 
 
 def _block_decode(p: Block, x, cache: dict, pos, kind: str, cfg: ModelCfg,

@@ -81,6 +81,14 @@ def mlstm_init(generator, cfg: ModelCfg, dtype=torch.bfloat16,
     return p
 
 
+def mlstm_specs(rules) -> dict:
+    """The mLSTM block's weight specs."""
+    return {"w_up": rules.w2(), "w_gate": rules.w2(),
+            "conv_w": (None, rules.tp), "wq": rules.w2(), "wk": rules.w2(),
+            "wv": rules.w2(), "w_if": (rules.fsdp, None), "b_if": (None,),
+            "w_down": rules.w2_row(), "skip": (rules.tp,)}
+
+
 def _mlstm_qkv(params: MLSTM, x: torch.Tensor, cfg: ModelCfg,
                conv_state=None):
     """x (B,S,D) -> up (B,S,U), q/k/v (B,S,H,dh), log input gate and log
@@ -241,6 +249,12 @@ def slstm_init(generator, cfg: ModelCfg, dtype=torch.bfloat16,
     p.w_down.copy_(layers.dense_init(generator, *p.w_down.shape, dtype,
                                      device))
     return p
+
+
+def slstm_specs(rules) -> dict:
+    """The sLSTM block's weight specs."""
+    return {"w_zifo": rules.w2(), "b_zifo": (None,),
+            "w_down": rules.w2_row()}
 
 
 def _slstm_gates(params: SLSTM, x: torch.Tensor):

@@ -21,6 +21,26 @@ cannot be held twice.  It keeps the reference's order of operations, and
 ``count``, ``lr`` and ``grad_norm`` stay 0-d tensors on the parameters'
 device, so an update never waits for the host.
 
+**ZeRO: the state sharded over the ``fsdp`` axis.**  The reference gets
+it from GSPMD: the state leaves take the parameters' specs
+(:func:`state_specs`), so each device holds and updates its part of
+master, m and v.  Here :func:`shard` splits each state leaf whose spec
+names the axis into contiguous slices along that dimension, as
+``torch.tensor_split`` makes them (where the width does not divide the
+dimension, the trailing slices are one element shorter), held as
+:class:`Shard` leaves; a leaf with no entry on the axis (a norm scale, the
+router) stays whole, as GSPMD replicates it.  :func:`apply` on such a
+state updates the held slices, then writes the weights back from them
+(:func:`write_weights`, an all-gather over the axis on a
+:class:`~repro_torch.dist.ProcessGroupMesh`).  The global norm is taken
+once, over the whole gradient, in the unsharded order, and every other
+operation of AdamW is elementwise: given the same gradients the sharded
+update is bitwise the unsharded one.  On a
+:class:`~repro_torch.dist.LocalMesh` the banks are slices of one device,
+so a :class:`Shard` holds the whole tensor and the banks update their
+views of it; on a ``ProcessGroupMesh`` a rank holds its own slices only.
+The bf16 weights and the gradients stay whole on every rank.
+
 ``quantize_grad`` / ``dequantize_grad`` are the int8 error-feedback
 compression of the compressed cross-pod step
 (:func:`repro_torch.train.train_step.make_train_step_compressed`).
@@ -28,6 +48,7 @@ compression of the compressed cross-pod step
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Callable
@@ -119,6 +140,108 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     return fn(tree)
 
 
+def _spec_leaves(spec_tree) -> list[tuple]:
+    """The specs of a spec tree in :func:`groups`' order (dicts by sorted
+    key, lists in order; a tuple is a spec)."""
+    if isinstance(spec_tree, dict):
+        return [s for k in sorted(spec_tree)
+                for s in _spec_leaves(spec_tree[k])]
+    if isinstance(spec_tree, list):
+        return [s for sub in spec_tree for s in _spec_leaves(sub)]
+    return [spec_tree]
+
+
+def leaf_specs(params, spec_tree) -> list[tuple]:
+    """The spec of each tensor of ``params``, in :func:`tree_leaves` order.
+
+    ``spec_tree`` is shaped as the reference's tree of ``params``
+    (:func:`repro_torch.models.transformer.param_specs` for an LM).  Where
+    the reference stacks a layer stack, its spec leads with the layer
+    axis; each layer's tensor takes the spec without it.
+    """
+    by_id = {}
+    for (parts, ndim), spec in zip(groups(params), _spec_leaves(spec_tree),
+                                   strict=True):
+        if len(spec) > ndim:
+            raise ValueError(f"spec {spec} for a {ndim}-d leaf")
+        for x in parts:
+            by_id[id(x)] = tuple(spec[ndim - x.ndim:])
+    return [by_id[id(x)] for x in tree_leaves(params)]
+
+
+def axis_dim(spec, axis: str) -> int | None:
+    """The dimension ``spec`` splits over ``axis`` (None: none)."""
+    for i, e in enumerate(spec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return i
+    return None
+
+
+class Shard:
+    """One leaf of a sharded optimizer state: a tensor of ``shape`` split
+    into contiguous slices along ``dim``, one per position of ``axis`` of
+    ``mesh``, as ``torch.tensor_split`` makes them.  ``local`` holds what
+    this process holds: on a mesh holding every bank of the axis (a
+    :class:`~repro_torch.dist.LocalMesh`) the whole tensor, the banks being
+    its slices; else this rank's slice alone."""
+
+    def __init__(self, local: torch.Tensor, shape, dim: int, mesh, axis):
+        self.local, self.shape, self.dim = local, torch.Size(shape), dim
+        self.mesh, self.axis = mesh, axis
+
+    @classmethod
+    def split(cls, x: torch.Tensor, dim: int, mesh, axis: str) -> "Shard":
+        """``x`` (the whole tensor) as this process holds it: itself
+        where every bank is here, else a copy of this rank's slice."""
+        held = mesh.banks(axis)
+        local = x
+        if len(held) < mesh.shape[axis]:
+            local = torch.tensor_split(x, mesh.shape[axis],
+                                       dim)[held[0]].clone()
+        return cls(local, x.shape, dim, mesh, axis)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def whole(self) -> bool:
+        """Whether this process holds every slice."""
+        return len(self.mesh.banks(self.axis)) == self.mesh.shape[self.axis]
+
+    def like(self, x: torch.Tensor) -> "Shard":
+        """The whole tensor ``x`` split as this leaf is."""
+        return Shard.split(x, self.dim, self.mesh, self.axis)
+
+    def parts(self, x: torch.Tensor | None = None) -> list[torch.Tensor]:
+        """The held slices (views) of ``x``, a whole tensor of this leaf's
+        shape, or of this leaf's own tensor when ``x`` is None."""
+        w = self.mesh.shape[self.axis]
+        if self.whole:
+            return list(torch.tensor_split(self.local if x is None else x,
+                                           w, self.dim))
+        if x is None:
+            return [self.local]
+        return [torch.tensor_split(x, w, self.dim)[
+            self.mesh.banks(self.axis)[0]]]
+
+    def full(self, dtype=None) -> torch.Tensor:
+        """The whole tensor (in ``dtype``): on a rank holding one slice, an
+        all-gather over the axis, which every rank of it must call."""
+        x = self.local if dtype is None else self.local.to(dtype)
+        if self.whole:
+            return x
+        w, n = self.mesh.shape[self.axis], self.shape[self.dim]
+        sizes = [len(r) for r in torch.tensor_split(torch.arange(n), w)]
+        if x.shape[self.dim] < sizes[0]:            # pad a short slice
+            pad = list(x.shape)
+            pad[self.dim] = sizes[0] - x.shape[self.dim]
+            x = torch.cat([x, x.new_zeros(pad)], self.dim)
+        g = self.mesh.all_gather(x[None], self.axis)[0]
+        return torch.cat([g[i].narrow(self.dim, 0, sizes[i])
+                          for i in range(w)], self.dim)
+
+
 def init(params: Any) -> OptState:
     """float32 copies of the parameters, zero moments, count 0."""
     leaves = tree_leaves(params)
@@ -163,6 +286,99 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return x.sqrt_() if x.is_cuda else x.double().sqrt_().float()
 
 
+def state_specs(param_specs) -> OptState:
+    """The spec tree of an :class:`OptState` given the parameters' spec
+    tree (their ``for_opt=True`` specs where the two differ): master, m
+    and v each take the parameters' specs, ``count`` is replicated."""
+    return OptState(master=copy.deepcopy(param_specs),
+                    m=copy.deepcopy(param_specs),
+                    v=copy.deepcopy(param_specs), count=())
+
+
+def is_sharded(state: OptState) -> bool:
+    """Whether any leaf of ``state`` is a :class:`Shard`."""
+    return any(isinstance(x, Shard) for parts, _ in groups(state.master)
+               for x in parts)
+
+
+def _rebuild(params, new_groups: list) -> Any:
+    """The reference's tree of ``params`` holding ``new_groups`` (one list
+    of parts per :func:`groups` entry, in its order) at its leaves."""
+    it = iter(new_groups)
+
+    def walk(tree):
+        if hasattr(tree, "reference_tree"):
+            return walk(tree.reference_tree())
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(x) for x in tree)
+        parts = next(it)
+        return (layers.LayerStack(parts)
+                if isinstance(tree, layers.LayerStack) else parts[0])
+
+    out = walk(params)
+    if next(it, None) is not None:
+        raise ValueError("more groups than the tree has leaves")
+    return out
+
+
+def shard(state: OptState, params, spec_tree, mesh, axis) -> OptState:
+    """``state`` with master, m and v split over ``axis`` of ``mesh``.
+
+    ``spec_tree`` is the parameters' spec tree
+    (``transformer.param_specs(cfg, rules, for_opt=True)`` for an LM).
+    Each leaf whose spec names ``axis`` becomes a :class:`Shard` split
+    along that dimension; the others stay whole.  master, m and v become
+    reference trees (``params``' :meth:`reference_tree` structure, layer
+    stacks as :class:`~repro_torch.models.layers.LayerStack` leaves).
+    With no axis, an axis of width 1, or a state already sharded,
+    ``state`` is returned as it is.
+    """
+    if axis is None or mesh.shape.get(axis, 1) == 1 or is_sharded(state):
+        return state
+    specs = dict(zip(map(id, tree_leaves(params)),
+                     leaf_specs(params, spec_tree)))
+    dims = [[axis_dim(specs[id(p)], axis) for p in ps]
+            for ps, _ in groups(params)]
+
+    def split(tree):
+        return _rebuild(params, [
+            [x if d is None else Shard.split(x.detach(), d, mesh, axis)
+             for x, d in zip(parts, ds, strict=True)]
+            for (parts, _), ds in zip(groups(tree), dims, strict=True)])
+
+    return OptState(split(state.master), split(state.m), split(state.v),
+                    state.count)
+
+
+def _scalars(cfg: OptCfg, state: OptState, g_groups):
+    """(grad norm, clip scale, count, lr, the two bias corrections)."""
+    gnorm = _norm(g_groups)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    count = state.count + 1
+    lr = lr_schedule(cfg, count)
+    b1c = 1 - torch.pow(cfg.b1, count.float())
+    b2c = 1 - torch.pow(cfg.b2, count.float())
+    return gnorm, scale, count, lr, b1c, b2c
+
+
+def _adamw(cfg: OptCfg, g, master, m, v, decay: bool, scale, lr, b1c, b2c):
+    """One leaf's (or slice's) AdamW update of master, m and v, in place."""
+    g = g.float() * scale
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    step_ = (m / b1c).div_(_sqrt(v / b2c).add_(cfg.eps))
+    # decoupled weight decay on matrices only (ndim >= 2)
+    if decay:
+        step_.add_(cfg.weight_decay * master)
+    master.sub_(lr * step_)
+
+
+def _flat(grads) -> list:
+    return grads if isinstance(grads, list) else tree_leaves(grads)
+
+
 @torch.no_grad()
 def apply(cfg: OptCfg, state: OptState, grads: Any, params: Any):
     """One AdamW step.  Returns (params, state, stats).
@@ -172,32 +388,50 @@ def apply(cfg: OptCfg, state: OptState, grads: Any, params: Any):
     and the parameters are updated in place (the returned ``state`` holds
     the same tensors and a new ``count``); the new parameters are the
     master weights cast to the parameters' dtype.  ``stats`` are 0-d
-    tensors: ``grad_norm`` before clipping and the step's ``lr``.
+    tensors: ``grad_norm`` before clipping and the step's ``lr``.  It is
+    :func:`update_slices` and then :func:`write_weights`, which take whole
+    leaves and the :class:`Shard` leaves of a sharded state (:func:`shard`)
+    alike.
     """
-    flat = grads if isinstance(grads, list) else tree_leaves(grads)
-    g_groups = groups(params, flat)
-    gnorm = _norm(g_groups)
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    count = state.count + 1
-    lr = lr_schedule(cfg, count)
-    b1c = 1 - torch.pow(cfg.b1, count.float())
-    b2c = 1 - torch.pow(cfg.b2, count.float())
+    state, stats = update_slices(cfg, state, grads, params)
+    write_weights(state, params)
+    return params, state, stats
 
-    for (gs, ndim), (ps, _), (masters, _), (ms, _), (vs, _) in zip(
-            g_groups, groups(params), groups(state.master), groups(state.m),
+
+@torch.no_grad()
+def update_slices(cfg: OptCfg, state: OptState, grads: Any, params: Any):
+    """The first half of :func:`apply`: each held slice of master, m and
+    v (each whole leaf) updated in place from the matching slice of the
+    whole gradient.  Returns (state with the new count, stats)."""
+    g_groups = groups(params, _flat(grads))
+    gnorm, scale, count, lr, b1c, b2c = _scalars(cfg, state, g_groups)
+    for (gs, ndim), (masters, _), (ms, _), (vs, _) in zip(
+            g_groups, groups(state.master), groups(state.m),
             groups(state.v), strict=True):
-        for g, master, m, v, p in zip(gs, masters, ms, vs, ps, strict=True):
-            g = g.float() * scale
-            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-            step_ = (m / b1c).div_(_sqrt(v / b2c).add_(cfg.eps))
-            # decoupled weight decay on matrices only (ndim >= 2)
-            if ndim >= 2:
-                step_.add_(cfg.weight_decay * master)
-            master.sub_(lr * step_)
-            p.copy_(master)
-    return params, OptState(state.master, state.m, state.v, count), {
+        for g, master, m, v in zip(gs, masters, ms, vs, strict=True):
+            if isinstance(master, Shard):
+                for part in zip(master.parts(g), master.parts(), m.parts(),
+                                v.parts(), strict=True):
+                    _adamw(cfg, *part, ndim >= 2, scale, lr, b1c, b2c)
+            else:
+                _adamw(cfg, g, master, m, v, ndim >= 2, scale, lr, b1c, b2c)
+    return OptState(state.master, state.m, state.v, count), {
         "grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def write_weights(state: OptState, params: Any) -> None:
+    """The second half: the weights set to the master weights in their
+    dtype, each :class:`Shard` gathered over its axis (every rank of it
+    takes part) or, where every bank is here, cast whole."""
+    for (ps, _), (masters, _) in zip(groups(params), groups(state.master),
+                                     strict=True):
+        for p, master in zip(ps, masters, strict=True):
+            if isinstance(master, Shard) and not master.whole:
+                p.copy_(master.full(p.dtype))
+            else:
+                p.copy_(master.local if isinstance(master, Shard)
+                        else master)
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,19 @@ recycled into the next step.  On a :class:`~repro_torch.dist.LocalMesh`
 the pods run one after the other on one device, and their gradients are
 stacked one leaf at a time.
 
+Data-parallel path (:class:`ShardedTrainStep`, ``make_train_step(...,
+mesh, rules)`` with an ``fsdp`` axis wider than 1): the batch split over
+the dp axes, the slices' gradients summed over them, and the optimizer
+state sharded over ``fsdp`` by :func:`state_specs` (ZeRO-1), which the
+reference gets from GSPMD.
+
 A step updates its state in place and returns it: at full width the
-state fills most of the card and cannot be held twice.  The sharding
-specs of the reference (``state_specs``) come with multi-card training.
+state fills most of the card and cannot be held twice.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -63,17 +69,20 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def loss_fn(params, cfg: ModelCfg, batch,
-            mesh=None) -> tuple[torch.Tensor, dict]:
-    """Next-token cross entropy (fp32 logits path), plus the aux loss.
+def state_specs(cfg: ModelCfg, rules, compressed: bool = False
+                ) -> TrainState:
+    """The reference's spec tree of a :class:`TrainState`: the weights by
+    ``param_specs``, the optimizer state by the ``for_opt=True`` specs
+    (finer than the weights' under ``moe_zero1``), the step replicated
+    and, when ``compressed``, the EF buffers as the weights."""
+    pspecs = transformer.param_specs(cfg, rules)
+    ospecs = transformer.param_specs(cfg, rules, for_opt=True)
+    return TrainState(params=pspecs, opt=opt.state_specs(ospecs), step=(),
+                      ef=copy.deepcopy(pspecs) if compressed else None)
 
-    ``batch["embeds"]``, where present, is a stub frontend's prefix; its
-    positions are not scored.  ``mesh`` goes to the forward (the MoE
-    layers of an ``ep`` config run expert-parallel on it).
 
-    Returns (loss + AUX_LOSS_WEIGHT * aux, metrics); metrics ``loss``,
-    ``aux`` and ``tokens`` are 0-d tensors.
-    """
+def _nll(params, cfg: ModelCfg, batch, mesh=None):
+    """(sum of the masked next-token NLL, sum of the mask, aux loss)."""
     logits, aux = transformer.forward(params, cfg, batch["tokens"],
                                       batch.get("embeds"), mesh)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
@@ -86,9 +95,23 @@ def loss_fn(params, cfg: ModelCfg, batch,
     mask = batch.get("mask")
     mask = (torch.ones_like(nll) if mask is None
             else torch.as_tensor(mask, device=nll.device))
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    metrics = {"loss": loss.detach(), "aux": aux.detach(),
-               "tokens": torch.sum(mask)}
+    return torch.sum(nll * mask), torch.sum(mask), aux
+
+
+def loss_fn(params, cfg: ModelCfg, batch,
+            mesh=None) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy (fp32 logits path), plus the aux loss.
+
+    ``batch["embeds"]``, where present, is a stub frontend's prefix; its
+    positions are not scored.  ``mesh`` goes to the forward (the MoE
+    layers of an ``ep`` config run expert-parallel on it).
+
+    Returns (loss + AUX_LOSS_WEIGHT * aux, metrics); metrics ``loss``,
+    ``aux`` and ``tokens`` are 0-d tensors.
+    """
+    nll_sum, tokens, aux = _nll(params, cfg, batch, mesh)
+    loss = nll_sum / torch.clamp(tokens, min=1.0)
+    metrics = {"loss": loss.detach(), "aux": aux.detach(), "tokens": tokens}
     return loss + AUX_LOSS_WEIGHT * aux, metrics
 
 
@@ -127,12 +150,136 @@ class TrainStep:
         return self.update(state, *self.grads(state, batch))
 
 
+class ShardedTrainStep(TrainStep):
+    """The data-parallel step with the optimizer state sharded over the
+    ``fsdp`` axis: what the reference's step does under GSPMD with its
+    state laid out by :func:`state_specs`.
+
+    :meth:`grads`: the batch splits into contiguous slices over
+    ``rules.dp`` (slice ``i`` of ``n`` takes rows ``[i * b, (i + 1) *
+    b)``, ``b`` the batch over ``n``, in row-major order of the dp axes as
+    the mesh lists them).  Each held slice's gradients are those of
+    ``nll_sum_i / T + AUX_LOSS_WEIGHT * aux_i / n``, ``T`` the whole
+    batch's mask sum (at least 1), so their sum is the gradient of the
+    reference's mean loss; the slices' gradients are summed in slice
+    order (:meth:`_sum`), every rank ending with the whole sum.  The
+    MoE aux loss is the mean of the slices' (the reference's is that of
+    the whole batch), and a slice's forward takes no mesh: an ``ep``
+    config's MoE layers run the dense path, since expert parallelism
+    would split the batch over dp again.
+
+    :meth:`update`: the state is sharded first (:meth:`shard_state`, by
+    the ``for_opt=True`` specs, so ``moe_zero1`` keeps the ``data`` split
+    on the state alone), then :func:`repro_torch.train.optimizer.apply`
+    updates the held slices and gathers the weights.
+    """
+
+    def __init__(self, cfg: ModelCfg, opt_cfg: opt.OptCfg, mesh, rules):
+        super().__init__(cfg, opt_cfg)
+        self.mesh, self.rules = mesh, rules
+        self.opt_specs = transformer.param_specs(cfg, rules, for_opt=True)
+        self.dp = tuple(a for a in mesh.axis_names if a in (rules.dp or ()))
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """``state`` with its optimizer state sharded over ``fsdp`` (in
+        place; a sharded state is left as it is)."""
+        state.opt = opt.shard(state.opt, state.params, self.opt_specs,
+                              self.mesh, self.rules.fsdp)
+        return state
+
+    def _held(self) -> list[int]:
+        """The dp slices this process computes, by row-major position."""
+        held = [0]
+        for a in self.dp:
+            held = [h * self.mesh.shape[a] + c for h in held
+                    for c in self.mesh.banks(a)]
+        return held
+
+    def _sum(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The sum over every dp slice of a value each held slice gave:
+        accumulated in float32 in slice order, in the value's dtype.
+
+        Where every slice is here (a :class:`~repro_torch.dist.LocalMesh`)
+        that is a loop over them.  On a process-group mesh, where a rank
+        holds one slice, it is a reduce-scatter and an all-gather: the
+        flattened value is cut into one chunk per slice, chunk ``j`` of
+        every rank goes to rank ``j`` (an all-to-all), which sums them in
+        slice order, and the summed chunks are gathered.  Each rank sends
+        and receives about twice the value's bytes, as an all-reduce, and
+        the sum is elementwise the same as on a ``LocalMesh``.
+        """
+        n = self.mesh.width(self.dp)
+        if len(parts) == n:
+            if n == 1:
+                return parts[0]
+            acc = parts[0].to(torch.float32, copy=True)
+            for x in parts[1:]:
+                acc.add_(x)
+            return acc.to(parts[0].dtype)
+        (x,) = parts
+        flat = x.reshape(-1)
+        c = -(-flat.numel() // n)
+        chunks = torch.cat([flat, flat.new_zeros(n * c - flat.numel())])
+        recv = self.mesh.all_to_all(chunks.view(1, n, c), self.dp)[0]
+        mine = self._sum(list(recv))
+        return self.mesh.gather_batch(mine[None], self.dp).reshape(-1)[
+            :flat.numel()].view(x.shape)
+
+    def grads(self, state: TrainState, batch):
+        """(the whole batch's gradients, the same on every rank, and its
+        metrics)."""
+        batch = to_device(batch, state.step.device)
+        n = self.mesh.width(self.dp)
+        rows = batch["labels"].shape[0]
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows does not split over "
+                             f"{n} dp slices")
+        part = rows // n
+        mask = batch.get("mask")
+        whole = (torch.sum(mask.float()) if mask is not None
+                 else torch.tensor(float(batch["labels"].numel()),
+                                   device=state.step.device))
+        denom = torch.clamp(whole, min=1.0)
+        leaves = opt.tree_leaves(state.params)
+        per_slice, sums = [], []
+        for i in self._held():
+            sub = {k: v[i * part:(i + 1) * part] for k, v in batch.items()}
+            nll_sum, tokens, aux = _nll(state.params, self.cfg, sub)
+            total = nll_sum / denom + AUX_LOSS_WEIGHT * aux / n
+            per_slice.append(list(torch.autograd.grad(total, leaves)))
+            sums.append(torch.stack([nll_sum.detach(), tokens.float(),
+                                     aux.detach()]))
+        grads = []
+        for j in range(len(leaves)):
+            grads.append(self._sum([g[j] for g in per_slice]))
+            for g in per_slice:
+                g[j] = None
+        nll_sum, tokens, aux = self._sum(sums)
+        return grads, {"loss": nll_sum / denom, "aux": aux / n,
+                       "tokens": tokens}
+
+    def update(self, state: TrainState, grads, metrics):
+        return _update(self.opt_cfg, self.shard_state(state), grads,
+                       metrics)
+
+
 def make_train_step(cfg: ModelCfg, opt_cfg: opt.OptCfg = opt.OptCfg(),
-                    mesh=None) -> TrainStep:
-    """Baseline train step: (state, batch) -> (state, metrics).  ``mesh``
-    goes to the forward, as the reference's step passes its mesh: an
-    ``ep`` config's MoE layers run expert-parallel on its ``model``
-    axis."""
+                    mesh=None, rules=None) -> TrainStep:
+    """Train step: (state, batch) -> (state, metrics).
+
+    ``mesh`` goes to the forward, as the reference's step passes its
+    mesh: an ``ep`` config's MoE layers run expert-parallel on its
+    ``model`` axis.  ``rules`` (:func:`repro_torch.dist.specs.make_rules`
+    on ``mesh``): where ``rules.fsdp`` names an axis of ``mesh`` wider
+    than 1, the step is a :class:`ShardedTrainStep` (the batch split over
+    ``rules.dp``, the optimizer state over ``rules.fsdp``); else it is the
+    one-device step.
+    """
+    if rules is not None and rules.fsdp is not None:
+        if mesh is None:
+            raise ValueError("rules with an fsdp axis need their mesh")
+        if mesh.shape.get(rules.fsdp, 1) > 1:
+            return ShardedTrainStep(cfg, opt_cfg, mesh, rules)
     return TrainStep(cfg, opt_cfg, mesh)
 
 

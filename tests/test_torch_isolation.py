@@ -78,6 +78,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.data.lm_synth, repro_torch.dist.pipeline\n"
         "import repro_torch.checkpoint.fault_tolerance\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.roofline, repro_torch.roofline.model\n"
         "sys.path.insert(0, ROOT)\n"
         "import torch_benchmarks.run, torch_benchmarks.common, chip_smoke\n"
         "import torch_benchmarks.bench_am_serve\n"
