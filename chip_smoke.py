@@ -146,9 +146,29 @@ change to a model family: ``phase_device()``, ``phase_build()`` and
    (24 and 48 launches) and decode 4 tokens against the forward.  A
    decode is held by its greedy token and, but for MoE configs, by the
    relative L2 of its logits (``LM_LOGIT_REL_L2``);
+4e. the top-k sweep: ``topk_sweep`` runs
+   ``torch_benchmarks/bench_am_topk.py``'s k sweep at the main path's
+   width (1,024 queries, 2^20 rows of 256 3-bit symbols, k = 8, 16, 32,
+   64, 128, 256), the fused tier held bitwise to the dense tier (the dense
+   kernel's matrix in the stable two-key order) at every k, its output
+   bytes Q*k*8, and prints both tiers' microseconds and output bytes; then
+   its merge sweep at the sharded main path's geometry (64 queries at
+   k = 10 against the same 2^20 rows, split over 2-64 banks of
+   ``LocalMesh``), every merge bitwise ``am.search``, with each merge's
+   microseconds and traffic;
+4f. the dry-run: ``dryrun`` counts, on the meta device as one card,
+   ``launch.dryrun.run_cell`` for yi-6b's prefill at B = 1, S = 4,096
+   (einsum, and with flash's score bytes dropped) and for train_yi6b's
+   step, and prints each cell's ``t_bound`` beside the seconds measured
+   for it in phases 4b and 4c (the 80 production cells are host counts
+   that the card does not change: ``python -m repro_torch.launch.dryrun
+   --all`` on any CPU);
 5. each kernel held against its plain version and timed with CUDA events
    at the shapes its paths gave it, beside its bound, its plain version
-   and a library call where one computes the same thing; ``hdc_encode``
+   and a library call where one computes the same thing (the CAM kernels
+   also at ``topk_sweep``'s Q = 1,024 against its 2^20-row table, the
+   fused kernel at each k of the sweep, and the benchmark's two tiers
+   held to the same plain results there); ``hdc_encode``
    also against ``torch.matmul``'s time for the product alone, and
    ``hdc_encode`` and ``mibo_mc`` also as device time (a CUDA graph of
    launches) beside the time per call.
@@ -157,9 +177,10 @@ Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
 3e-2 and each row at a relative L2 error of 2e-2), at dh = 8, at the
 prefill shape, and in bfloat16 (the tensor-core kernel) at each padded
-head width.  Every path of phases 3, 3b, 3c, 3d and 4 (4b-4d too)
+head width.  Every path of phases 3, 3b, 3c, 3d and 4 (4b-4f too)
 runs with the launch counts of every kernel set to 0 just before it and
-read just after, and must launch its kernels (phase 4c's none).
+read just after, and must launch its kernels (phase 4c's and 4f's
+none).
 It imports nothing of the JAX package.  Needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``; the build goes to ``build/repro_torch/``.
 """
@@ -309,6 +330,15 @@ FLASH_LAYER_REL_L2 = 2e-2
 # the RG-LRU's log-depth scan against the step-by-step recurrence on the
 # card, bf16 outputs: a few bf16 ulps (2^-8 relative each)
 SCAN_REL_L2 = 1e-2
+# phase 4e: torch_benchmarks/bench_am_topk.py's k sweep at the main path's
+# width (Q = 1,024 queries against 2^20 rows of 256 3-bit symbols, k over
+# the whole fused band) and its merge sweep at 2-64 banks over the same
+# 2^20 rows, TOPK_MERGE_Q queries (a multiple of every bank count, so no
+# ring chunk pads) at the main path's k, each call timed TOPK_ITERS times
+# after one warm-up and then checked once
+TOPK_Q, TOPK_N, TOPK_ITERS = 1024, 1 << 20, 5
+TOPK_BANKS = (2, 4, 8, 16, 32, 64)
+TOPK_MERGE_Q = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -2303,13 +2333,13 @@ def _fsdp_gate(card):
 def _fsdp_per_rank(card):
     """(c) the bytes each rank holds for full-depth yi-6b at each of
     FSDP_WIDTHS: bf16 weights and gradients whole, master, m and v the
-    largest slice ``state_specs`` gives a rank (arithmetic, no reading)."""
-    import torch
+    largest slice ``state_specs`` gives a rank (arithmetic, no reading:
+    ``launch.dryrun.held_params``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.dist import LocalMesh
     from repro_torch.dist.specs import make_rules
+    from repro_torch.launch import dryrun
     from repro_torch.models import transformer
-    from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     full = get_config(LM_ARCH)
     lm = transformer.LM(full, device="meta")
@@ -2318,12 +2348,8 @@ def _fsdp_per_rank(card):
     for w in FSDP_WIDTHS:
         mesh = LocalMesh((w, 1), ("data", "model"))
         rules = make_rules(mesh, full.parallel.layout)
-        specs = ts.state_specs(full, rules).opt.master
-        held = 0
-        for p, spec in zip(lm.parameters(), opt.leaf_specs(lm, specs)):
-            d = opt.axis_dim(spec, rules.fsdp) if w > 1 else None
-            held += (p.numel() if d is None else
-                     torch.tensor_split(p, w, d)[0].numel())
+        held = dryrun.held_params(lm, ts.state_specs(full, rules).opt.master,
+                                  mesh, (rules.fsdp,))
         out[w] = {"bytes": 4 * n + 12 * held, "state_params_held": held}
     # summing one leaf's gradient over the ranks (ShardedTrainStep._sum's
     # reduce-scatter and all-gather) holds three more bf16 copies of it
@@ -3246,6 +3272,126 @@ def phase_families():
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the top-k sweep
+# ---------------------------------------------------------------------------
+
+def phase_topk():
+    """``topk_sweep``: the benchmark's k sweep at Q = TOPK_Q, N = TOPK_N,
+    D = WIDTH, 3 bits, k = 8 .. 256, fused held bitwise to dense at every
+    k, then its merge sweep over TOPK_BANKS banks at TOPK_MERGE_Q queries,
+    k = K, N = TOPK_N, D = WIDTH, every merge bitwise ``am.search``.  Each
+    dense call launches ``cam_pack`` + ``cam_search``, each fused call
+    ``cam_pack`` + ``cam_search_topk``, and a sharded search one of each
+    per bank.  Phase 5 holds both tiers at the k sweep's shapes to the
+    plain versions."""
+    import torch
+    from torch_benchmarks import bench_am_topk as bench
+    report = bench.new_report()
+    dev = torch.device("cuda")
+
+    def run():
+        ks = bench.run_k_sweep(False, report, d=WIDTH, q=TOPK_Q, n=TOPK_N,
+                               device=dev, verify=True, iters=TOPK_ITERS)
+        merges = bench.run_merge_sweep(False, report, device=dev,
+                                       banks_sweep=TOPK_BANKS,
+                                       iters=TOPK_ITERS, q=TOPK_MERGE_Q,
+                                       k=K, n=TOPK_N, d=WIDTH)
+        return ks, merges
+
+    calls = 1 + TOPK_ITERS + 1          # warm-up, timed, the bitwise check
+
+    def expect(out):
+        ks, merges = out
+        dense = len(ks) * calls
+        # the k sweep's fused calls and its am.search at k = 256; the merge
+        # sweep's am.search and three merges at each bank count
+        fused = dense + 1 + 1 + sum(3 * calls * int(b) for b in merges)
+        return {"cam_search": dense, "cam_search_topk": fused,
+                "cam_pack": dense + fused}
+
+    (ks, merges), path = _run_path("topk_sweep", run, expect)
+    check(sorted(ks) == list(bench.K_SWEEP) and all(
+        v["bitwise"] for v in ks.values()), f"topk_sweep: k points {ks}")
+    for k, v in ks.items():
+        check(v["fused_out_bytes"] == TOPK_Q * k * 8,
+              f"topk_sweep: fused output bytes {v['fused_out_bytes']} at "
+              f"k={k}")
+        print(f"  topk_sweep: Q={TOPK_Q} N={TOPK_N} D={WIDTH} k={k}: dense "
+              f"{v['dense_us']:.1f} us, fused {v['fused_us']:.1f} us "
+              f"(median of {TOPK_ITERS}); output bytes dense "
+              f"{v['dense_out_bytes']} (the (Q, N) matrix and the (Q, k) "
+              f"pair), fused {v['fused_out_bytes']}; bitwise equal")
+    geo = report["merge_geometry"]
+    for b, v in merges.items():
+        print(f"  topk_sweep: merges at {b} banks (Q={geo['q']} k={geo['k']} "
+              f"N={geo['n']} D={WIDTH}), bitwise am.search: tree "
+              f"{v['tree_us']:.1f} "
+              f"us, allgather {v['allgather_us']:.1f} us, ring "
+              f"{v['ring_us']:.1f} us; traffic per device tree "
+              f"{v['tree_bytes']} B, allgather {v['allgather_bytes']} B, "
+              f"ring {v['ring_bytes']} B; auto = {v['auto']}")
+    path.update({"q": TOPK_Q, "n": TOPK_N, "d": WIDTH, "bits": BITS,
+                 "iters": TOPK_ITERS, "ksweep": {str(k): v for k, v in
+                                                 ks.items()},
+                 "merge": merges, "merge_geometry": geo})
+    return {"topk_sweep": path}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the dry-run
+# ---------------------------------------------------------------------------
+
+def phase_dryrun(lm_paths, train_paths):
+    """``dryrun``: ``launch.dryrun.run_cell`` for the yi-6b cells the card
+    measures, as one card (mesh (1, 1)): the prefill at B = 1, S = LM_SEQ
+    (einsum, and with flash's score bytes dropped) and train_yi6b's step
+    (TRAIN_LAYERS layers, B = TRAIN_BATCH, S = TRAIN_SEQ); each t_bound
+    printed beside the seconds measured for it."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    full = get_config(LM_ARCH)
+    card_mesh = ((1, 1), ("data", "model"))
+    prefill = ShapeCfg("prefill_card", LM_SEQ, 1, "prefill")
+    train = ShapeCfg("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    train_cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    measured = {
+        "prefill_einsum": lm_paths["lm_prefill"]["einsum_forward_s"],
+        "prefill_flash": lm_paths["lm_prefill"]["seconds"],
+        "train": train_paths["train_yi6b"]["median_step_s"]}
+
+    def run():
+        return {
+            "prefill_einsum": dryrun.run_cell(LM_ARCH, prefill, False,
+                                              force=True, cfg=full,
+                                              mesh=card_mesh),
+            "prefill_flash": dryrun.run_cell(LM_ARCH, prefill, False,
+                                             force=True, tag="flash",
+                                             flash_model=True, cfg=full,
+                                             mesh=card_mesh),
+            "train": dryrun.run_cell(LM_ARCH, train, False, force=True,
+                                     cfg=train_cfg, mesh=card_mesh)}
+
+    cells, path = _run_path("dryrun", run, {})
+    for name, rec in cells.items():
+        check(rec["status"] == "ok", f"dryrun {name}: {rec['status']} "
+              f"{rec.get('reason')}")
+        rl = rec["roofline"]
+        print(f"  dryrun {name}: {rec['arch']} {rec['shape']} on one card: "
+              f"t_bound {rl['t_bound_s']:.4f} s ({rl['bottleneck']}; compute "
+              f"{rl['t_compute_s']:.4f} s, memory {rl['t_memory_s']:.4f} s), "
+              f"{rl['flops_per_device']:.4e} FLOPs, "
+              f"{rl['hbm_bytes_per_device']:.4e} bytes, peak temp "
+              f"{rec['memory']['temp_bytes'] / 1e9:.2f} GB; measured "
+              f"{measured[name]:.4f} s ({measured[name] / rl['t_bound_s']:.2f}"
+              f" x t_bound)")
+    path["cells"] = {n: {"roofline": r["roofline"], "memory": r["memory"],
+                         "measured_s": measured[n]}
+                     for n, r in cells.items()}
+    return {"dryrun": path}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -3309,20 +3455,35 @@ def _bound_parts(bytes_moved, ops):
     return roof.bound_ms(bytes_moved, ops, roof.PEAK_OPS_INT8)
 
 
-def _time_dense(q8, t8, levels, groups, err):
+def _max_diff(got, want):
+    """The largest absolute difference of two int32 matrices, row block by
+    row block (a (1,024, 2^20) matrix widened whole would take 8 GB)."""
+    import torch
+    if torch.equal(got, want):
+        return 0.0
+    return max(float((g.long() - w.long()).abs().max().item())
+               for g, w in zip(got.split(64), want.split(64)))
+
+
+def _time_dense(q8, t8, levels, groups, err, tier=None):
     """One shape of the dense kernel: held against plain, then timed
     through its wrapper (the pack launch included), with
-    ``torch.cdist(p=0)`` on float copies as the library call."""
+    ``torch.cdist(p=0)`` on float copies as the library call.  ``tier``,
+    where given, is another call that must return plain's matrix too."""
     import torch
     from repro_torch.kernels.cam_search import kernel, ref
     (qn, d), n = q8.shape, t8.shape[0]
     plain_ms, want = _timed_once(lambda: ref.mismatch_counts(q8, t8))
     got = kernel.cam_search(q8, t8, levels=levels)
-    diff = float((got.long() - want.long()).abs().max().item())
+    diff = _max_diff(got, want)
     err["cam_search"] = max(err["cam_search"], diff)
     check(diff == 0, f"cam_search differs from plain by {diff} at "
           f"Q={qn} N={n} D={d}")
-    del got, want
+    del got
+    if tier is not None:
+        check(torch.equal(tier(), want), f"the dense tier differs from "
+              f"plain at Q={qn} N={n} D={d}")
+    del want
     ms = _time_ms(lambda: kernel.cam_search(q8, t8, levels=levels), 10)
     qf, tf = q8.float(), t8.float()
     lib_ms = _time_ms(lambda: torch.cdist(qf, tf, p=0), 5, 1)
@@ -3330,13 +3491,14 @@ def _time_dense(q8, t8, levels, groups, err):
     t_b, t_o = _bound_parts(qn * d + n * d + qn * n * 4, qn * n * d)
     return {"Q": qn, "N": n, "D": d, "groups": groups, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bytes_ms": t_b, "ops_ms": t_o}
+            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o)}
 
 
-def _time_fused(q8, t8, vr, levels, k, groups, err):
+def _time_fused(q8, t8, vr, levels, k, groups, err, tier=None):
     """One shape of the fused kernel: held against plain, then timed
     through its wrapper (the pack launch included).  Its bound counts the
-    live rows only, the ones the result depends on."""
+    live rows only, the ones the result depends on.  ``tier``, where
+    given, is another call that must return plain's result too."""
     import torch
     from repro_torch.kernels.cam_search import kernel, ref
     (qn, d), n = q8.shape, t8.shape[0]
@@ -3344,6 +3506,11 @@ def _time_fused(q8, t8, vr, levels, k, groups, err):
     got = kernel.cam_search_topk(q8, t8, vr, levels=levels, k=k)
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           f"cam_search_topk differs from plain at Q={qn} N={n} D={d} k={k}")
+    if tier is not None:
+        check(all(torch.equal(g, w) for g, w in zip(tier(), want,
+                                                    strict=True)),
+              f"the fused tier differs from plain at Q={qn} N={n} D={d} "
+              f"k={k}")
     del got, want
     ms = _time_ms(lambda: kernel.cam_search_topk(q8, t8, vr, levels=levels,
                                                  k=k), 10)
@@ -3352,7 +3519,7 @@ def _time_fused(q8, t8, vr, levels, k, groups, err):
                             qn * live * d)
     return {"Q": qn, "N": n, "D": d, "k": k, "groups": groups, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            "bytes_ms": t_b, "ops_ms": t_o}
+            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o)}
 
 
 def _time_pack(q8, t8, levels, groups):
@@ -3374,7 +3541,7 @@ def _time_pack(q8, t8, levels, groups):
                             (qn + n) * d)
     return {"Q": qn, "N": n, "D": d, "groups": groups, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            "bytes_ms": t_b, "ops_ms": t_o}
+            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o)}
 
 
 def _tile_ms(fn):
@@ -3411,6 +3578,31 @@ def _row(name, replaces, path, paths, shapes, err,
             "launches_by_path": {p: v["launches"][name]
                                  for p, v in paths.items()},
             **{k: mean(k) for k in keys}, "shapes": shapes}
+
+
+def _topk_sweep_shapes(fused, dense, packs, err):
+    """The CAM kernels at ``topk_sweep``'s shapes (Q = TOPK_Q against its
+    TOPK_N-row table, the benchmark's own inputs), each held to its plain
+    version on the card and timed, appended to the shape lists as a path
+    of their own (groups 0: outside the main path's means).  The
+    benchmark's fused tier at each k and its dense tier's matrix are held
+    to the same plain results."""
+    import torch
+    from torch_benchmarks import bench_am_topk as bench
+    from repro_torch.kernels.cam_search import ops as cam_ops
+    levels = 1 << BITS
+    queries, table = bench.sweep_inputs(TOPK_Q, TOPK_N, WIDTH, "cuda")
+    q8, t8 = queries.to(torch.int8), table.to(torch.int8)
+    vr = torch.full((1,), TOPK_N, dtype=torch.int32, device=t8.device)
+    tag = {"path": "topk_sweep"}
+    for k in bench.K_SWEEP:
+        fused.append({**_time_fused(q8, t8, vr, levels, k, 0, err,
+                                    tier=lambda k=k: bench.fused_topk(
+                                        queries, table, k)), **tag})
+    dense.append({**_time_dense(q8, t8, levels, 0, err,
+                                tier=lambda: cam_ops.mismatch_counts(
+                                    queries, table, BITS)), **tag})
+    packs.append({**_time_pack(q8, t8, levels, 0), **tag})
 
 
 def phase_timing(run, err):
@@ -3468,6 +3660,7 @@ def phase_timing(run, err):
         dense.append(shape)
     del l1_t8
     dense.append(_time_dense(batch(64), t8, levels, 0, err))
+    _topk_sweep_shapes(fused, dense, packs, err)
 
     rows = [
         _row("cam_search", "src/repro/kernels/cam_search/kernel.py:114",
@@ -3481,8 +3674,11 @@ def phase_timing(run, err):
         for s in r["shapes"]:
             tiles = "".join(f" {key}={s[key]:.4f}" for key in s
                             if key.startswith("ms_tile"))
-            print(f"  {r['name']}: Q={s['Q']} N={s['N']} D={s['D']} "
+            extra = "".join(f" {key}={s[key]}" for key in ("k", "path")
+                            if key in s)
+            print(f"  {r['name']}: Q={s['Q']} N={s['N']} D={s['D']}{extra} "
                   f"groups={s['groups']} ms={s['ms']:.4f} "
+                  f"bound_ms={s['bound_ms']:.4f} "
                   f"plain_ms={s['plain_ms']:.2f}{tiles}")
     kernel_ms = sum(s["ms"] * s["groups"] for s in fused)
     print(f"  int32->int8 table cast {cast_ms:.4f} ms per call; L1 "
@@ -3671,8 +3867,12 @@ def main() -> int:
         train_paths = phase_train(card)
         print("phase 4d: the other model families at full width")
         family_paths = phase_families()
+        print("phase 4e: the top-k sweep")
+        topk_paths = phase_topk()
+        print("phase 4f: the dry-run")
+        dryrun_paths = phase_dryrun(lm_paths, train_paths)
         paths = {**run["paths"], **tcam_paths, **app_paths, **lm_paths,
-                 **train_paths, **family_paths}
+                 **train_paths, **family_paths, **topk_paths, **dryrun_paths}
         print("phase 5: timing")
         rows, costs = phase_timing({**run, "paths": paths}, err)
         rows += phase_timing_app(paths, encode_shapes, err)

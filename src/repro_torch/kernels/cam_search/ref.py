@@ -30,7 +30,12 @@ _CHUNK_ELEMS = 1 << 26
 _INF_KEY = (1 << 31) - 1
 
 
-def _row_chunk(qn: int, d: int) -> int:
+def _row_chunk(qn: int, d: int, device) -> int:
+    """Rows of one (Q, rows, D) comparison block: bounded by
+    :data:`_CHUNK_ELEMS`, but on the meta device, where nothing is
+    allocated, one block takes every row."""
+    if device.type == "meta":
+        return 1 << 62
     return max(1, _CHUNK_ELEMS // max(1, qn * d))
 
 
@@ -72,7 +77,7 @@ def mismatch_counts(queries: torch.Tensor, table: torch.Tensor,
     """
     qn, d = queries.shape
     n = table.shape[0]
-    step = _row_chunk(qn, d)
+    step = _row_chunk(qn, d, queries.device)
     out = torch.empty((qn, n), dtype=torch.int32, device=queries.device)
     for s in range(0, n, step):
         c = None if care is None else care[s:s + step]
@@ -202,7 +207,7 @@ def topk(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
     dev = queries.device
     vr = n if valid_rows is None else valid_rows
     vr = torch.as_tensor(vr, device=dev).reshape(())
-    step = _row_chunk(qn, d)
+    step = _row_chunk(qn, d, queries.device)
     best = torch.empty((qn, 0), dtype=torch.int64, device=dev)
     count = torch.zeros((qn,), dtype=torch.int32, device=dev)
     for s in range(0, n, step):

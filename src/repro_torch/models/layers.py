@@ -8,10 +8,18 @@ tuples of axis names (:mod:`repro_torch.dist.specs`).
 
 from __future__ import annotations
 
+import contextvars
 import copy
 
 import torch
 from torch import nn
+
+#: While set, :func:`scan` hands its loop to this callable, ``(step, carry,
+#: xs, n) -> (carry, y)``: a cost counter that runs one step and counts its
+#: work ``n`` times (:mod:`repro_torch.launch.dryrun`).  Unset, the loop
+#: runs every step.
+SCAN_COUNTER: contextvars.ContextVar = contextvars.ContextVar(
+    "scan_counter", default=None)
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -189,6 +197,22 @@ def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     operands (a bf16 activation or cache read against float32 weights)."""
     dt = torch.promote_types(a.dtype, w.dtype)
     return a.to(dt) @ w.to(dt)
+
+
+def scan(step, carry, xs: tuple, n: int):
+    """A loop over time, as the reference's ``lax.scan``: ``step(carry,
+    xs_t) -> (carry, y_t)`` for t < ``n``, ``xs_t`` each tensor of ``xs``
+    at index t of dim 1.  Returns (the last carry, the ``y_t`` stacked
+    along dim 1).  Under :data:`SCAN_COUNTER` one step runs, its output
+    standing for all ``n``."""
+    counter = SCAN_COUNTER.get()
+    if counter is not None and n > 1:
+        return counter(step, carry, xs, n)
+    ys = []
+    for t in range(n):
+        carry, y = step(carry, tuple(x[:, t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,

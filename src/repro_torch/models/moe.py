@@ -25,6 +25,8 @@ Shared experts (DeepSeek) run as a dense MLP beside either path.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
 from torch import nn
 
@@ -34,6 +36,14 @@ from repro_torch.models import layers
 
 EP_AXIS = "model"
 DP_AXES = ("pod", "data")
+
+#: While set, :func:`moe_block` hands each layer that would take the EP
+#: path to this callable, ``(params, x, cfg, mesh) -> (out, aux)``: a cost
+#: counter on the meta device, where EP cannot run (it reads the group
+#: sizes to the host; :func:`repro_torch.launch.dryrun.moe_static`).  The
+#: dense path runs there as it is.
+MOE_COUNTER: contextvars.ContextVar = contextvars.ContextVar(
+    "moe_counter", default=None)
 
 
 class MoE(nn.Module):
@@ -333,7 +343,10 @@ def moe_ep(params: MoE, x: torch.Tensor, cfg: ModelCfg, mesh):
 
 def moe_block(params: MoE, x: torch.Tensor, cfg: ModelCfg, mesh=None):
     """Dispatch between the EP and dense paths: EP iff ``cfg.parallel.ep``
-    and a mesh is given."""
+    and a mesh is given (EP to :data:`MOE_COUNTER`, where it is set)."""
     if cfg.parallel.ep and mesh is not None:
+        counter = MOE_COUNTER.get()
+        if counter is not None:
+            return counter(params, x, cfg, mesh)
         return moe_ep(params, x, cfg, mesh)
     return moe_dense(params, x, cfg)

@@ -134,42 +134,48 @@ def _mlstm_chunkwise(q, k, v, log_i, log_f):
     dmat = torch.where(causal[None, None, :, :, None], dmat, -torch.inf)
     m_intra = dmat.amax(dim=3)                                # (B,NC,Wq,H)
 
-    c_prev = q.new_zeros((b, h, dh, dh), dtype=torch.float32)
-    n_prev = q.new_zeros((b, h, dh), dtype=torch.float32)
-    m_prev = torch.full((b, h), -1e30, dtype=torch.float32, device=q.device)
-    hs = []
-    for c in range(nc):
-        qi, ki, vi, lii = qc[:, c], kc[:, c], vc[:, c], li[:, c]
-        lfc, lft, dm, mi = lf_cum[:, c], lf_tot[:, c], dmat[:, c], m_intra[:, c]
-        # stabiliser: incoming state decayed to position i vs intra-chunk max
-        m_inter = lfc + m_prev[:, None, :]                    # (B,W,H)
-        m_tot = torch.maximum(mi, m_inter)
-        w_intra = torch.exp(dm - m_tot[:, :, None, :])        # (B,Wq,Wk,H)
-        w_inter = torch.exp(m_inter - m_tot)                  # (B,W,H)
+    carry = (q.new_zeros((b, h, dh, dh), dtype=torch.float32),
+             q.new_zeros((b, h, dh), dtype=torch.float32),
+             torch.full((b, h), -1e30, dtype=torch.float32, device=q.device))
+    _, hs = layers.scan(_mlstm_chunk, carry, (qc, kc, vc, li, lf_cum, lf_tot,
+                                              dmat, m_intra), nc)
+    return hs.reshape(b, s, h, dh)
 
-        scores = torch.einsum("bihd,bjhd->bijh", qi, ki) * w_intra
-        h_num = (torch.einsum("bijh,bjhd->bihd", scores, vi)
-                 + torch.einsum("bihd,bhde->bihe", qi, c_prev)
-                 * w_inter[..., None])
-        # denominator: q . (sum_j w_intra[i,j] k_j + w_inter[i] n_prev)
-        n_comb = (torch.einsum("bijh,bjhd->bihd", w_intra, ki)
-                  + n_prev[:, None, :, :] * w_inter[..., None])
-        den = torch.maximum(torch.abs(torch.sum(qi * n_comb, dim=-1)),
-                            torch.exp(-m_tot))                # (B,W,H)
-        hs.append(h_num / den[..., None])
 
-        # ---- state update to end of chunk --------------------------------
-        # decay from in-chunk position j to the chunk end
-        log_w = lft[:, None, :] - lfc + lii                   # (B,W,H)
-        m_next = torch.maximum(lft + m_prev, log_w.amax(dim=1))
-        decay = torch.exp(lft + m_prev - m_next)              # (B,H)
-        w_state = torch.exp(log_w - m_next[:, None, :])       # (B,W,H)
-        c_prev = (c_prev * decay[..., None, None]
-                  + torch.einsum("bjh,bjhd,bjhe->bhde", w_state, ki, vi))
-        n_prev = (n_prev * decay[..., None]
-                  + torch.einsum("bjh,bjhd->bhd", w_state, ki))
-        m_prev = m_next
-    return torch.stack(hs, dim=1).reshape(b, s, h, dh)
+def _mlstm_chunk(carry, xs):
+    """One chunk of :func:`_mlstm_chunkwise`: the carried (c, n, m) state
+    and the chunk's q, k, v, log input gates, cumulative and total log
+    forget gates, intra-chunk log weights and their maxima -> (the state at
+    the chunk's end, the chunk's h (B,W,H,dh) float32)."""
+    c_prev, n_prev, m_prev = carry
+    qi, ki, vi, lii, lfc, lft, dm, mi = xs
+    # stabiliser: incoming state decayed to position i vs intra-chunk max
+    m_inter = lfc + m_prev[:, None, :]                        # (B,W,H)
+    m_tot = torch.maximum(mi, m_inter)
+    w_intra = torch.exp(dm - m_tot[:, :, None, :])            # (B,Wq,Wk,H)
+    w_inter = torch.exp(m_inter - m_tot)                      # (B,W,H)
+
+    scores = torch.einsum("bihd,bjhd->bijh", qi, ki) * w_intra
+    h_num = (torch.einsum("bijh,bjhd->bihd", scores, vi)
+             + torch.einsum("bihd,bhde->bihe", qi, c_prev)
+             * w_inter[..., None])
+    # denominator: q . (sum_j w_intra[i,j] k_j + w_inter[i] n_prev)
+    n_comb = (torch.einsum("bijh,bjhd->bihd", w_intra, ki)
+              + n_prev[:, None, :, :] * w_inter[..., None])
+    den = torch.maximum(torch.abs(torch.sum(qi * n_comb, dim=-1)),
+                        torch.exp(-m_tot))                    # (B,W,H)
+
+    # ---- state update to end of chunk ------------------------------------
+    # decay from in-chunk position j to the chunk end
+    log_w = lft[:, None, :] - lfc + lii                       # (B,W,H)
+    m_next = torch.maximum(lft + m_prev, log_w.amax(dim=1))
+    decay = torch.exp(lft + m_prev - m_next)                  # (B,H)
+    w_state = torch.exp(log_w - m_next[:, None, :])           # (B,W,H)
+    c_next = (c_prev * decay[..., None, None]
+              + torch.einsum("bjh,bjhd,bjhe->bhde", w_state, ki, vi))
+    n_next = (n_prev * decay[..., None]
+              + torch.einsum("bjh,bjhd->bhd", w_state, ki))
+    return (c_next, n_next, m_next), h_num / den[..., None]
 
 
 def _mix(params: MLSTM, x, hh, up):
@@ -282,12 +288,8 @@ def slstm_block(params: SLSTM, x: torch.Tensor, cfg: ModelCfg):
     z, i, log_f, o = _slstm_gates(params, x)
     zeros = x.new_zeros((b, d), dtype=torch.float32)
     carry = (zeros, zeros, torch.full_like(zeros, -1e30))
-    hs = []
-    for t in range(s):
-        carry, h = _slstm_step(carry, (z[:, t], i[:, t], log_f[:, t],
-                                       o[:, t]))
-        hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype) @ params.w_down
+    _, hs = layers.scan(_slstm_step, carry, (z, i, log_f, o), s)
+    return hs.to(x.dtype) @ params.w_down
 
 
 def slstm_state_shape(cfg: ModelCfg, batch: int) -> dict:

@@ -283,7 +283,8 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     PyTorch's vectorised CPU sqrt is one ulp off for about 0.6 % of
     float32 inputs, so the CPU takes it in float64 (exact after rounding
     back, since float64 carries more than twice float32's digits)."""
-    return x.sqrt_() if x.is_cuda else x.double().sqrt_().float()
+    return x.double().sqrt_().float() if x.device.type == "cpu" \
+        else x.sqrt_()
 
 
 def state_specs(param_specs) -> OptState:

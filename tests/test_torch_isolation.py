@@ -44,6 +44,10 @@ from repro_torch.models import transformer
 from repro_torch.serve import AMService
 from repro_torch.serve.engine import Engine
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from torch_benchmarks import bench_am_topk  # noqa: E402
+
 torch.set_num_threads(2)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -79,9 +83,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.checkpoint.fault_tolerance\n"
         "import repro_torch.launch.train\n"
         "import repro_torch.roofline, repro_torch.roofline.model\n"
+        "import repro_torch.roofline.report, repro_torch.launch.dryrun\n"
         "sys.path.insert(0, ROOT)\n"
         "import torch_benchmarks.run, torch_benchmarks.common, chip_smoke\n"
         "import torch_benchmarks.bench_am_serve\n"
+        "import torch_benchmarks.bench_am_topk\n"
         "chip_smoke._kernel_modules()\n"
         "import runpy\n"
         "for ex in ('quickstart', 'hdc_classification', 'lpm_routing',\n"
@@ -143,6 +149,8 @@ def test_no_gpu_means_an_error_not_the_cpu(monkeypatch):
         launch_train.train("yi-6b", True, 2, 2, 8, "unused")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.train_state_from_numpy(cfg, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_am_topk.main(["--smoke"])
     # asking for the CPU explicitly works
     assert am.make_table(codes, device="cpu").device.type == "cpu"
 

@@ -62,6 +62,40 @@ def test_bench_am_index_smoke(tmp_path):
     assert report["device"] == "cpu"
 
 
+def test_bench_am_topk_smoke(tmp_path):
+    """The smoke's gates are its assertions (dense == fused bitwise at k
+    = 8, 64, 256, fused output bytes Q*k*8, no fused fallback at k = 256,
+    the three merges bitwise ``am.search`` at 2-64 banks, the traffic
+    laws); the report's merge traffic and ``auto`` equal the reference's
+    ``am.merge_traffic_bytes`` and ``am.resolve_merge``, and
+    ``scripts/check_bench_regression.py`` diffs two of the port's reports
+    as they are."""
+    from repro.core import am as ref_am
+    out = _run("torch_benchmarks/bench_am_topk.py", "--smoke", cwd=tmp_path)
+    assert "wrote BENCH_topk.json (3 k points, 6 bank counts)" in out
+    report = json.loads((tmp_path / "BENCH_topk.json").read_text())
+    assert report["device"] == "cpu" and report["ksweep"] == {}
+    assert sorted(report["ksweep_us"], key=int) == ["8", "64", "256"]
+    assert all(v["bitwise"] for v in report["ksweep_us"].values())
+    assert report["ksweep_us"]["256"]["fused_out_bytes"] == 16 * 256 * 8
+    geo = report["merge_geometry"]
+    for banks, entry in report["merge"].items():
+        for merge in ("tree", "allgather", "ring"):
+            assert entry[f"{merge}_bytes"] == ref_am.merge_traffic_bytes(
+                int(banks), geo["q"], geo["k"], merge=merge,
+                n_rows=geo["n"])
+        assert entry["auto"] == ref_am.resolve_merge("auto", int(banks),
+                                                     geo["k"])
+    gate = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "check_bench_regression.py"),
+         "--topk-baseline", str(tmp_path / "BENCH_topk.json"),
+         "--topk-fresh", str(tmp_path / "BENCH_topk.json")],
+        capture_output=True, text=True, timeout=60)
+    assert gate.returncode == 0, gate.stdout + gate.stderr
+    assert "6 bank counts bitwise" in gate.stdout
+
+
 def _ref(module, *args):
     """stdout of the reference's ``benchmarks.<module>`` on the CPU."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
