@@ -52,6 +52,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import fefet, mibo
 from repro_torch.device import resolve_device
 
@@ -651,22 +652,23 @@ def _care_kwargs(table: AMTable, be: _Backend) -> dict:
 
 
 def _prep_queries(table: AMTable, queries) -> tuple[torch.Tensor, bool]:
-    if table.n_rows == 0:
-        raise ValueError(
-            "cannot search an empty AMTable (0 rows) — append codes first")
-    queries = _tensor(queries, table.device, torch.int32)
-    squeeze = queries.dim() == 1
-    if squeeze:
-        queries = queries[None]
-    if queries.dim() != 2:
-        raise ValueError(
-            f"queries must be (Q, D) or a single (D,) word, got a "
-            f"{queries.dim()}-D array of shape {tuple(queries.shape)} — "
-            f"flatten leading batch axes before searching")
-    if queries.shape[-1] != table.width:
-        raise ValueError(
-            f"query width {queries.shape[-1]} != stored width {table.width}")
-    return queries, squeeze
+    with obs.span("am.search.prep"):
+        if table.n_rows == 0:
+            raise ValueError("cannot search an empty AMTable (0 rows) — "
+                             "append codes first")
+        queries = _tensor(queries, table.device, torch.int32)
+        squeeze = queries.dim() == 1
+        if squeeze:
+            queries = queries[None]
+        if queries.dim() != 2:
+            raise ValueError(
+                f"queries must be (Q, D) or a single (D,) word, got a "
+                f"{queries.dim()}-D array of shape {tuple(queries.shape)} — "
+                f"flatten leading batch axes before searching")
+        if queries.shape[-1] != table.width:
+            raise ValueError(f"query width {queries.shape[-1]} != stored "
+                             f"width {table.width}")
+        return queries, squeeze
 
 
 def _mask_rows(d: torch.Tensor, valid_rows) -> torch.Tensor:
@@ -724,51 +726,56 @@ def search(table: AMTable, queries, *, k: int = 1, threshold=None,
     Dispatch: a backend with a fused tier runs it for ``k <=
     FUSED_K_MAX`` (multi-match also needs ``fused_count``); otherwise the
     dense matrix and a stable sort run.  The two are bitwise-identical.
+
+    While a profiler records, the call runs in the span ``am.search`` and
+    its query preparation in ``am.search.prep`` (:mod:`repro_torch.obs`).
     """
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if matches is not None:
-        if k != 1:
-            raise ValueError(
-                f"pass either k= or matches=, not both (k={k}, "
-                f"matches={matches})")
-        if matches < 1:
-            raise ValueError(f"matches must be >= 1, got {matches}")
-    queries, squeeze = _prep_queries(table, queries)
-    be = _resolve_backend(backend)
-    ckw = _care_kwargs(table, be)
+    with obs.span("am.search"):
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if matches is not None:
+            if k != 1:
+                raise ValueError(
+                    f"pass either k= or matches=, not both (k={k}, "
+                    f"matches={matches})")
+            if matches < 1:
+                raise ValueError(f"matches must be >= 1, got {matches}")
+        queries, squeeze = _prep_queries(table, queries)
+        be = _resolve_backend(backend)
+        ckw = _care_kwargs(table, be)
 
-    if matches is not None:
-        m_eff = min(matches, table.n_rows)
-        thr_q = _match_threshold(threshold, queries.shape[0], table.device)
-        if (be.fused is not None and be.fused_count
-                and 1 <= m_eff <= FUSED_K_MAX):
-            idx, dist, count = be.fused(
-                queries, table.codes, table.bits, table.distance, k=m_eff,
-                valid_rows=valid_rows, count_le=thr_q, **ckw)
-        else:
-            if be.fused is not None and be.fused_count \
-                    and m_eff > FUSED_K_MAX:
-                _note_fused_fallback()
-            d = be.dense(queries, table.codes, table.bits, table.distance,
-                         **ckw).to(torch.float32)
-            d = _mask_rows(d, valid_rows)
-            count = (d <= thr_q).sum(dim=1, dtype=torch.int32)
-            idx, dist = _sorted_topk(d, m_eff)
-        dist, idx = _pad_candidates(dist, idx, matches)
-        return _finalize_matches(idx, dist, count, thr_q, matches, squeeze)
+        if matches is not None:
+            m_eff = min(matches, table.n_rows)
+            thr_q = _match_threshold(threshold, queries.shape[0], table.device)
+            if (be.fused is not None and be.fused_count
+                    and 1 <= m_eff <= FUSED_K_MAX):
+                idx, dist, count = be.fused(
+                    queries, table.codes, table.bits, table.distance, k=m_eff,
+                    valid_rows=valid_rows, count_le=thr_q, **ckw)
+            else:
+                if be.fused is not None and be.fused_count \
+                        and m_eff > FUSED_K_MAX:
+                    _note_fused_fallback()
+                d = be.dense(queries, table.codes, table.bits, table.distance,
+                             **ckw).to(torch.float32)
+                d = _mask_rows(d, valid_rows)
+                count = (d <= thr_q).sum(dim=1, dtype=torch.int32)
+                idx, dist = _sorted_topk(d, m_eff)
+            dist, idx = _pad_candidates(dist, idx, matches)
+            return _finalize_matches(idx, dist, count, thr_q, matches, squeeze)
 
-    k = min(k, table.n_rows)
-    if be.fused is not None and 1 <= k <= FUSED_K_MAX:
-        idx, dist = be.fused(queries, table.codes, table.bits, table.distance,
-                             k=k, valid_rows=valid_rows, **ckw)
+        k = min(k, table.n_rows)
+        if be.fused is not None and 1 <= k <= FUSED_K_MAX:
+            idx, dist = be.fused(queries, table.codes, table.bits,
+                                 table.distance, k=k, valid_rows=valid_rows,
+                                 **ckw)
+            return _finalize(idx, dist, threshold, squeeze)
+        if be.fused is not None and k > FUSED_K_MAX:
+            _note_fused_fallback()
+        d = be.dense(queries, table.codes, table.bits, table.distance, **ckw)
+        d = _mask_rows(d.to(torch.float32), valid_rows)
+        idx, dist = _sorted_topk(d, k)
         return _finalize(idx, dist, threshold, squeeze)
-    if be.fused is not None and k > FUSED_K_MAX:
-        _note_fused_fallback()
-    d = be.dense(queries, table.codes, table.bits, table.distance, **ckw)
-    d = _mask_rows(d.to(torch.float32), valid_rows)
-    idx, dist = _sorted_topk(d, k)
-    return _finalize(idx, dist, threshold, squeeze)
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,9 @@
 // per row, so the list order is exactly ascending (distance, row): ties go
 // to the lowest row, and rows at index >= valid_rows carry distance
 // 0xFFFFFFFF (+inf) with their own row index.  Unfilled slots hold
-// (+inf, 2^31 - 1).
+// (+inf, 2^31 - 1).  A traced copy of pass 1 (unmasked, uncounted only)
+// also counts its votes, inserts and clock cycles (TopkStat) for
+// src/repro_torch/obs.py; the untraced pass is compiled without them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -359,20 +361,25 @@ __device__ __noinline__ void insert_rows(uint64_t* L, int k, uint32_t d0,
   }
 }
 
+// The counters a traced partial pass adds to its `stats` buffer, one
+// uint64 each (src/repro_torch/obs.py's `cam_topk` group, in this order):
+// votes (one a query a tile), votes that called insert_rows, and SM clock
+// cycles, summed over warps, in tile_counts and in the rest of each tile.
+enum TopkStat { kVotes, kInserts, kCyclesCompare, kCyclesSelect };
+
 // Pass 1: block (query tile, split) -> the k smallest keys of its rows for
 // each of its queries, in part_keys[q][split][0, k), and its threshold
-// count in part_counts[q][split].
-template <int P, int BQ, bool MASKED, bool COUNTED>
-__global__ void __launch_bounds__(THREADS)
-cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
-                        const uint32_t* __restrict__ tp,
-                        const uint32_t* __restrict__ cp,
-                        const int32_t* __restrict__ valid_rows,
-                        const float* __restrict__ count_le,
-                        uint64_t* __restrict__ part_keys,
-                        int32_t* __restrict__ part_counts, int Q, int N,
-                        int D, int GP, int k, int splits,
-                        int rows_per_split) {
+// count in part_counts[q][split].  TRACED adds the block's counters to
+// `stats` (one atomicAdd a counter a warp); the outputs are the same.
+template <int P, int BQ, bool MASKED, bool COUNTED, bool TRACED>
+__device__ __forceinline__ void topk_partial(
+    const uint32_t* __restrict__ qp, const uint32_t* __restrict__ tp,
+    const uint32_t* __restrict__ cp, const int32_t* __restrict__ valid_rows,
+    const float* __restrict__ count_le, uint64_t* __restrict__ part_keys,
+    int32_t* __restrict__ part_counts, int Q, int N, int D, int GP, int k,
+    int splits, int rows_per_split, unsigned long long* __restrict__ stats) {
+  static_assert(!TRACED || (!MASKED && !COUNTED),
+                "the traced pass is unmasked and uncounted");
   constexpr int TQ = BQ / 16;
   constexpr int WARPS = THREADS / 32;
   constexpr int QPW = BQ / WARPS;            // queries per warp
@@ -403,10 +410,18 @@ cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
   }
   __syncthreads();
 
+  [[maybe_unused]] long long cycles_compare = 0, cycles_select = 0;
+  [[maybe_unused]] unsigned votes = 0, inserts = 0;
   for (int n0 = r_begin; n0 < r_end; n0 += BN) {
+    [[maybe_unused]] long long t0 = 0, t1 = 0;
+    if constexpr (TRACED) t0 = clock64();
     int acc[TQ][TN];
     tile_counts<P, BQ, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP,
                                !one_chunk || n0 == r_begin, qs, ts, cs);
+    if constexpr (TRACED) {
+      t1 = clock64();
+      cycles_compare += t1 - t0;
+    }
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
@@ -442,11 +457,15 @@ cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
         dk[e] = live ? dv[e] : 0xFFFFFFFFu;
         cand |= real && (dk[e] < worst || (open && dk[e] == worst));
       }
-      if (__any_sync(0xFFFFFFFFu, cand))
+      if constexpr (TRACED) ++votes;
+      if (__any_sync(0xFFFFFFFFu, cand)) {
+        if constexpr (TRACED) ++inserts;
         insert_rows(L, k, dk[0], dk[1], dk[2], dk[3], n0 + 4 * lane, r_end,
                     lane);
+      }
     }
     __syncthreads();
+    if constexpr (TRACED) cycles_select += clock64() - t1;
   }
 
 #pragma unroll
@@ -460,6 +479,45 @@ cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
       if (lane == 0) part_counts[(size_t)qq * splits + split] = c;
     }
   }
+  if constexpr (TRACED) {
+    if (lane == 0) {
+      atomicAdd(stats + kVotes, (unsigned long long)votes);
+      atomicAdd(stats + kInserts, (unsigned long long)inserts);
+      atomicAdd(stats + kCyclesCompare, (unsigned long long)cycles_compare);
+      atomicAdd(stats + kCyclesSelect, (unsigned long long)cycles_select);
+    }
+  }
+}
+
+template <int P, int BQ, bool MASKED, bool COUNTED>
+__global__ void __launch_bounds__(THREADS)
+cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
+                        const uint32_t* __restrict__ tp,
+                        const uint32_t* __restrict__ cp,
+                        const int32_t* __restrict__ valid_rows,
+                        const float* __restrict__ count_le,
+                        uint64_t* __restrict__ part_keys,
+                        int32_t* __restrict__ part_counts, int Q, int N,
+                        int D, int GP, int k, int splits,
+                        int rows_per_split) {
+  topk_partial<P, BQ, MASKED, COUNTED, false>(
+      qp, tp, cp, valid_rows, count_le, part_keys, part_counts, Q, N, D, GP, k,
+      splits, rows_per_split, nullptr);
+}
+
+// The partial pass with its counters, for an unmasked, uncounted search.
+template <int P, int BQ>
+__global__ void __launch_bounds__(THREADS)
+cam_topk_partial_traced_kernel(const uint32_t* __restrict__ qp,
+                               const uint32_t* __restrict__ tp,
+                               const int32_t* __restrict__ valid_rows,
+                               uint64_t* __restrict__ part_keys, int Q, int N,
+                               int D, int GP, int k, int splits,
+                               int rows_per_split,
+                               unsigned long long* __restrict__ stats) {
+  topk_partial<P, BQ, false, false, true>(
+      qp, tp, nullptr, valid_rows, nullptr, part_keys, nullptr, Q, N, D, GP, k,
+      splits, rows_per_split, stats);
 }
 
 // Pass 2: one warp per query merges its splits' lists into the final
@@ -524,28 +582,39 @@ cudaError_t launch_dense(const uint32_t* qp, const uint32_t* tp,
   return cudaGetLastError();
 }
 
-template <int P, int BQ, bool MASKED, bool COUNTED>
+// `kernel` on `grid` with `smem` bytes of dynamic shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch_smem(Kernel kernel, dim3 grid, size_t smem,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int P, int BQ, bool MASKED, bool COUNTED, bool TRACED>
 cudaError_t launch_partial(const uint32_t* qp, const uint32_t* tp,
                            const uint32_t* cp, const int32_t* vr,
                            const float* count_le, uint64_t* part_keys,
                            int32_t* part_counts, int Q, int N, int D, int GP,
                            int k, int splits, int rows_per_split,
-                           cudaStream_t stream) {
+                           unsigned long long* stats, cudaStream_t stream) {
   const size_t smem =
       (size_t)BQ * k * sizeof(uint64_t) +
       (size_t)BQ * BN * sizeof(uint32_t) +
       (size_t)(BQ + BN) * LDW * sizeof(uint32_t) +
       (MASKED ? (size_t)BN * Layout<P>::LDC * sizeof(uint32_t) : 0);
-  auto kernel = cam_topk_partial_kernel<P, BQ, MASKED, COUNTED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   // the query tiles of a split run side by side and share its rows in L2
   const dim3 grid((Q + BQ - 1) / BQ, splits);
-  kernel<<<grid, THREADS, smem, stream>>>(qp, tp, cp, vr, count_le, part_keys,
-                                          part_counts, Q, N, D, GP, k, splits,
-                                          rows_per_split);
-  return cudaGetLastError();
+  if constexpr (TRACED)
+    return launch_smem(cam_topk_partial_traced_kernel<P, BQ>, grid, smem,
+                       stream, qp, tp, vr, part_keys, Q, N, D, GP, k, splits,
+                       rows_per_split, stats);
+  else
+    return launch_smem(cam_topk_partial_kernel<P, BQ, MASKED, COUNTED>, grid,
+                       smem, stream, qp, tp, cp, vr, count_le, part_keys,
+                       part_counts, Q, N, D, GP, k, splits, rows_per_split);
 }
 
 // The instantiation for (planes, tile_q, masked[, counted]).
@@ -568,15 +637,23 @@ cudaError_t dense(int planes, int tile_q, const uint32_t* qp,
 #undef REPRO_DENSE
 }
 
+// With `stats` (unmasked and uncounted only) the traced pass runs.
 cudaError_t partial(int planes, int tile_q, bool counted, const uint32_t* qp,
                     const uint32_t* tp, const uint32_t* cp, const int32_t* vr,
                     const float* thr, uint64_t* pk, int32_t* pc, int Q, int N,
                     int D, int GP, int k, int splits, int rows_per_split,
-                    cudaStream_t s) {
-#define REPRO_PART(P, BQ, M, C)                                              \
-  return launch_partial<P, BQ, M, C>(qp, tp, cp, vr, thr, pk, pc, Q, N, D,   \
-                                     GP, k, splits, rows_per_split, s)
+                    unsigned long long* stats, cudaStream_t s) {
+  if (stats && (cp || counted)) return cudaErrorInvalidValue;
+#define REPRO_PART_T(P, BQ, M, C, T)                                         \
+  return launch_partial<P, BQ, M, C, T>(qp, tp, cp, vr, thr, pk, pc, Q, N,   \
+                                        D, GP, k, splits, rows_per_split,    \
+                                        stats, s)
+#define REPRO_PART(P, BQ, M, C) REPRO_PART_T(P, BQ, M, C, false)
 #define REPRO_PARTIAL(P)                                                     \
+  if (stats) {                                                               \
+    if (tile_q == 16) REPRO_PART_T(P, 16, false, false, true);               \
+    REPRO_PART_T(P, 64, false, false, true);                                 \
+  }                                                                          \
   if (tile_q == 16) {                                                        \
     if (cp) {                                                                \
       if (counted) REPRO_PART(P, 16, true, true);                            \
@@ -594,6 +671,7 @@ cudaError_t partial(int planes, int tile_q, bool counted, const uint32_t* qp,
   REPRO_BY_P(REPRO_PARTIAL)
 #undef REPRO_PARTIAL
 #undef REPRO_PART
+#undef REPRO_PART_T
 }
 
 }  // namespace
@@ -646,12 +724,15 @@ extern "C" int cam_search_launch(const void* qp, const void* tp,
 // null; with `count_le`, `part_counts` ((Q, splits) int32) and `out_count`
 // ((Q,) int32) must be given.  `part_keys` is (Q, splits, k) uint64
 // scratch.  `valid_rows` is a device int32 the kernel reads itself.
+// `stats`, null or four device uint64 (TopkStat), selects the traced pass 1,
+// which adds its counters there; it takes no `cp` and no `count_le`.
 // `tile_q` (16 or 64) is the queries per block of pass 1.
 extern "C" int cam_search_topk_launch(
     const void* qp, const void* tp, const void* cp, const void* valid_rows,
     const void* count_le, void* part_keys, void* part_counts, void* out_idx,
-    void* out_dist, void* out_count, int Q, int N, int D, int planes, int gp,
-    int k, int splits, int rows_per_split, int tile_q, void* stream) {
+    void* out_dist, void* out_count, void* stats, int Q, int N, int D,
+    int planes, int gp, int k, int splits, int rows_per_split, int tile_q,
+    void* stream) {
   if (k < 1 || k > MAX_K || (tile_q != 16 && tile_q != 64))
     return (int)cudaErrorInvalidValue;
   auto* pk = static_cast<uint64_t*>(part_keys);
@@ -663,7 +744,7 @@ extern "C" int cam_search_topk_launch(
       static_cast<const uint32_t*>(tp), static_cast<const uint32_t*>(cp),
       static_cast<const int32_t*>(valid_rows),
       static_cast<const float*>(count_le), pk, pc, Q, N, D, gp, k, splits,
-      rows_per_split, s);
+      rows_per_split, static_cast<unsigned long long*>(stats), s);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (Q + MERGE_WARPS - 1) / MERGE_WARPS;
   const size_t smem = (size_t)MERGE_WARPS * k * sizeof(uint64_t);

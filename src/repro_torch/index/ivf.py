@@ -60,6 +60,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import am
 from repro_torch.index import partition
 
@@ -499,14 +500,20 @@ def search(index: IVFIndex, queries, *, k: int = 1, probes: int = 1,
     Returns:
       :class:`IVFSearchResult` — the :class:`am.AMSearchResult` plus
       ``recall_proxy`` / ``probed_sets`` / ``candidate_fraction`` metadata.
+
+    While a profiler records, the three stages run in the spans
+    ``ivf.coarse``, ``ivf.fine`` and ``ivf.merge`` (:mod:`repro_torch.obs`).
     """
     _validate(index, k, probes)
     be = am._resolve_backend(backend)
     queries, squeeze = am._prep_queries(index.centroid_table(), queries)
     k_eff = min(k, index.sets * index.set_capacity)
-    probed, bound = _coarse(index, queries, probes)
-    dist, gid = _fine_candidates(be, queries, index, probed, k_eff)
-    dist, gid = _merge(dist, gid, k_eff)
+    with obs.span("ivf.coarse"):
+        probed, bound = _coarse(index, queries, probes)
+    with obs.span("ivf.fine"):
+        dist, gid = _fine_candidates(be, queries, index, probed, k_eff)
+    with obs.span("ivf.merge"):
+        dist, gid = _merge(dist, gid, k_eff)
     res = am._finalize(gid, dist, threshold, squeeze)
     proxy = _proxy(dist, bound)
     frac = (index.set_sizes[probed.long()].sum(dim=1)

@@ -23,6 +23,12 @@ a CUDA error.  Each counts its launches in :data:`launches`: a search call
 adds one to ``cam_pack`` and one to its own kernel (although the fused
 kernel runs as two passes).  The library is built and loaded at the first
 launch, never at import.
+
+While a profiler records (:mod:`repro_torch.obs`), the pack and the fused
+launch run in the spans ``cam.pack`` and ``cam.topk``, and one unmasked,
+uncounted fused search in ``obs.TRACE_EVERY`` runs the traced partial
+pass, which adds its votes, inserts and cycles to the ``cam_topk``
+counters; its outputs are the untraced pass's, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LaunchCounts, check, raise_on, stream
 from repro_torch.kernels.cam_search.ref import plane_layout
@@ -63,7 +70,7 @@ def _lib() -> ctypes.CDLL:
         lib.cam_pack_launch.restype = _I
         lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 6 + [_VP]
         lib.cam_search_launch.restype = _I
-        lib.cam_search_topk_launch.argtypes = [_VP] * 10 + [_I] * 9 + [_VP]
+        lib.cam_search_topk_launch.argtypes = [_VP] * 11 + [_I] * 9 + [_VP]
         lib.cam_search_topk_launch.restype = _I
         lib._repro_bound = True
     return lib
@@ -114,7 +121,7 @@ def pack(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
     tp = torch.empty((n, groups, words), dtype=torch.int32, device=dev)
     cp = (None if care is None else
           torch.empty((n, groups), dtype=torch.int32, device=dev))
-    with torch.cuda.device(dev):
+    with obs.span("cam.pack"), torch.cuda.device(dev):
         err = _lib().cam_pack_launch(
             queries.data_ptr(), table.data_ptr(), _ptr(care), qp.data_ptr(),
             tp.data_ptr(), _ptr(cp), qn, n, d, levels, planes, groups,
@@ -159,6 +166,9 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
     (no host sync); rows at index >= it get +inf.  ``count_le`` is an
     optional (Q, 1) float32 threshold; with it a third (Q,) int32 output
     counts the rows at distance <= threshold.  ``1 <= k <= min(N, 256)``.
+    While a profiler records, one unmasked search without ``count_le`` in
+    ``obs.TRACE_EVERY`` adds to :mod:`repro_torch.obs`'s ``cam_topk``
+    counters.
     """
     qn, n, d, dev = _check_inputs(queries, table, care)
     _check16("valid_rows", valid_rows, torch.int32, (1,), dev)
@@ -177,12 +187,15 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
     if count_le is not None:
         part_counts = torch.empty((qn, splits), dtype=torch.int32, device=dev)
         count = torch.empty((qn,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    stats = None
+    if care is None and count_le is None and obs.enabled():
+        stats = obs.launch_buffer("cam_topk", dev)
+    with obs.span("cam.topk"), torch.cuda.device(dev):
         err = _lib().cam_search_topk_launch(
             qp.data_ptr(), tp.data_ptr(), _ptr(cp), valid_rows.data_ptr(),
             _ptr(count_le), part_keys.data_ptr(), _ptr(part_counts),
-            idx.data_ptr(), dist.data_ptr(), _ptr(count), qn, n, d, planes,
-            groups, k, splits, rows_per_split, bq, stream(dev))
+            idx.data_ptr(), dist.data_ptr(), _ptr(count), _ptr(stats), qn, n,
+            d, planes, groups, k, splits, rows_per_split, bq, stream(dev))
     raise_on(err, "cam_search_topk")
     launches.add("cam_search_topk")
     if count_le is None:

@@ -18,12 +18,17 @@ every tie, +inf masked rows included.
 
 The reference's ``merge_alg=`` (a choice between two bitwise-identical TPU
 merge networks) has no counterpart here: the CUDA kernel has one merge.
+
+While a profiler records (:mod:`repro_torch.obs`), the casts run in the
+spans ``cam.cast.queries`` and ``cam.cast.table`` (the table's care plane
+with the table).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.cam_search import kernel as _k
 from repro_torch.kernels.cam_search import ref as _ref
 
@@ -46,6 +51,22 @@ def _int8_padded(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _int8(x: torch.Tensor, pad: bool) -> torch.Tensor:
+    """``x`` as int8, and for the kernels (``pad``) as :func:`_int8_padded`."""
+    x = x.to(torch.int8)
+    return _int8_padded(x) if pad else x
+
+
+def _cast(queries, table, care, pad: bool):
+    """Queries, table and care plane (or None) as int8, each in its span."""
+    with obs.span("cam.cast.queries"):
+        q = _int8(queries, pad)
+    with obs.span("cam.cast.table"):
+        t = _int8(table, pad)
+        c = None if care is None else _int8(care, pad)
+    return q, t, c
+
+
 def mismatch_counts(queries: torch.Tensor, table: torch.Tensor,
                     bits: int = 3, *,
                     care: torch.Tensor | None = None) -> torch.Tensor:
@@ -54,13 +75,10 @@ def mismatch_counts(queries: torch.Tensor, table: torch.Tensor,
     ``care`` is an optional (N, D) plane; positions with ``care == 0`` never
     count as mismatches.
     """
-    q = queries.to(torch.int8)
-    t = table.to(torch.int8)
-    c = None if care is None else care.to(torch.int8)
-    if _on_cuda(q, t):
-        return _k.cam_search(_int8_padded(q), _int8_padded(t),
-                             levels=1 << bits,
-                             care=None if c is None else _int8_padded(c))
+    cuda = _on_cuda(queries, table)
+    q, t, c = _cast(queries, table, care, cuda)
+    if cuda:
+        return _k.cam_search(q, t, levels=1 << bits, care=c)
     return _ref.mismatch_counts(q, t, c)
 
 
@@ -102,9 +120,8 @@ def topk_fused(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
     threshold — adds a third (Q,) int32 output, the number of live rows at
     distance <= threshold.
     """
-    q = queries.to(torch.int8)
-    t = table.to(torch.int8)
-    c = None if care is None else care.to(torch.int8)
+    cuda = _on_cuda(queries, table)
+    q, t, c = _cast(queries, table, care, cuda)
     qn, tn = q.shape[0], t.shape[0]
     k = min(k, tn)
     dev = t.device
@@ -120,8 +137,7 @@ def topk_fused(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
     else:
         vr = torch.full((1,), min(int(valid_rows), tn), dtype=torch.int32,
                         device=dev)
-    if _on_cuda(q, t):
-        return _k.cam_search_topk(
-            _int8_padded(q), _int8_padded(t), vr, levels=1 << bits, k=k,
-            care=None if c is None else _int8_padded(c), count_le=thr)
+    if cuda:
+        return _k.cam_search_topk(q, t, vr, levels=1 << bits, k=k, care=c,
+                                  count_le=thr)
     return _ref.topk(q, t, k, valid_rows=vr, care=c, count_le=thr)

@@ -75,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 import time
 import warnings
@@ -83,6 +84,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import am
 from repro_torch.device import resolve_device
 from repro_torch.dist.specs import make_rules
@@ -105,8 +107,72 @@ COMPLETION_ORDER = "fifo"
 #: clock rebases every live timestamp down once it reaches this.
 _REBASE_TICKS = float(1 << 23)
 
-#: Resolved queue-wait samples kept for the stats() percentiles.
-_WAIT_SAMPLES = 4096
+#: Queue waits kept as they are for the stats() percentiles; past this
+#: many, the percentiles come from :class:`WaitHistogram`'s buckets.
+_EXACT_WAITS = 4096
+
+
+class WaitHistogram:
+    """Queue waits of every lookup a service resolved, in constant memory.
+
+    Each wait lands in one of ``BUCKETS_PER_DECADE`` log-spaced buckets a
+    decade from ``LOW`` to ``HIGH`` clock units (a bucket spans a factor of
+    10 ** (1 / 100), 2.33 %), or in one bucket below ``LOW`` (zero waits
+    too) or one at ``HIGH`` and above.  The first :data:`_EXACT_WAITS` waits
+    are also kept as they are: while they are all the waits there are, a
+    percentile is NumPy's (linear) over them; past that it is the geometric
+    middle of the bucket that holds the wait of its rank, within one bucket
+    of the exact value (0 below ``LOW``, ``HIGH`` at or above it).
+    """
+
+    BUCKETS_PER_DECADE = 100
+    LOW, HIGH = 1e-9, 1e9
+
+    def __init__(self):
+        decades = round(math.log10(self.HIGH / self.LOW))
+        self._counts = np.zeros(decades * self.BUCKETS_PER_DECADE + 2,
+                                np.int64)
+        self._exact = np.empty(_EXACT_WAITS, np.float64)
+        self.n = 0
+
+    def add(self, waits) -> None:
+        """Count a sequence of waits (clock units)."""
+        w = np.asarray(waits, np.float64).reshape(-1)
+        keep = min(w.size, max(0, self._exact.size - self.n))
+        self._exact[self.n:self.n + keep] = w[:keep]
+        top = self._counts.size - 1
+        with np.errstate(divide="ignore", invalid="ignore"):
+            b = np.log10(w / self.LOW) * self.BUCKETS_PER_DECADE
+        b = np.where(w < self.LOW, 0, np.where(
+            w >= self.HIGH, top, 1 + np.clip(np.nan_to_num(b), 0, top - 2)))
+        np.add.at(self._counts, b.astype(np.int64), 1)
+        self.n += w.size
+
+    def percentiles(self, qs) -> list[float]:
+        """The ``qs`` percentiles (0-100) of every wait counted; 0.0 each
+        before the first."""
+        if self.n == 0:
+            return [0.0] * len(qs)
+        if self.n <= self._exact.size:
+            return np.percentile(self._exact[:self.n], qs).tolist()
+        cum = np.cumsum(self._counts)
+        out = []
+        for q in qs:
+            rank = math.floor(q / 100.0 * (self.n - 1))
+            b = int(np.searchsorted(cum, rank, side="right"))
+            if b == 0:
+                out.append(0.0)
+            elif b == self._counts.size - 1:
+                out.append(self.HIGH)
+            else:
+                out.append(self.LOW * 10 ** ((b - 0.5)
+                                             / self.BUCKETS_PER_DECADE))
+        return out
+
+    def clear(self) -> None:
+        """Forget every wait counted so far."""
+        self._counts[:] = 0
+        self.n = 0
 
 
 class TableFullError(RuntimeError):
@@ -371,8 +437,7 @@ class AMService:
         self._pending: list[PendingSearch] = []
         self._in_flight: collections.deque[_InFlightGroup] = \
             collections.deque()
-        self._wait_samples: collections.deque[float] = \
-            collections.deque(maxlen=_WAIT_SAMPLES)
+        self._waits = WaitHistogram()
         self._drain_req = False
         self._resolving = 0            # popped in-flight groups mid-readback
         self._driver: AMDriver | None = None
@@ -963,8 +1028,9 @@ class AMService:
         groups = self._take_pending()
         served = 0
         for (name, k, backend, has_thr, matches), futs in groups.items():
-            self._launch_group(self._state(name), futs, k, backend, has_thr,
-                               matches, now)
+            with obs.span("am.driver.launch"):
+                self._launch_group(self._state(name), futs, k, backend,
+                                   has_thr, matches, now)
             served += len(futs)
         if served:
             self.flushes += 1
@@ -1065,10 +1131,11 @@ class AMService:
         launch — a racing append or eviction wins.
         """
         if g.event is not None:
-            g.event.synchronize()
+            with obs.span("am.driver.readback"):
+                g.event.synchronize()
         idx, dist, exact, matched, count, overflow, frac = (
             None if a is None else a.numpy() for a in g.host)
-        with self._cv:
+        with obs.span("am.driver.resolve"), self._cv:
             t = g.table
             if self._tables.get(t.name) is t and t.version == g.version:
                 t.table = dataclasses.replace(t.table, meta=g.new_meta)
@@ -1093,8 +1160,8 @@ class AMService:
                                  else int(count[slot])),
                     overflow=(None if overflow is None
                               else bool(overflow[slot]))))
-                self._wait_samples.append(
-                    done_at - fut.request.submitted_at)
+            self._waits.add([done_at - fut.request.submitted_at
+                             for fut in g.futs])
             self._cv.notify_all()
 
     # -- driver lifecycle ----------------------------------------------------
@@ -1191,8 +1258,9 @@ class AMService:
     def stats(self, name: str | None = None) -> dict:
         """Service-level (or one table's) observability counters.
 
-        Queue-wait percentiles are over the last ``_WAIT_SAMPLES`` resolved
-        lookups, in clock units.
+        Queue-wait percentiles are over every lookup resolved since the
+        service started, in clock units (:class:`WaitHistogram`: exact up
+        to 4,096 lookups, within one 2.33 % bucket past that).
         """
         with self._lock:
             if name is not None:
@@ -1219,9 +1287,7 @@ class AMService:
                             t.index_frac_sum / max(1, t.index_groups),
                     },
                 }
-            waits = np.asarray(self._wait_samples, np.float64)
-            p50, p99 = (np.percentile(waits, [50, 99]) if waits.size
-                        else (0.0, 0.0))
+            p50, p99 = self._waits.percentiles([50, 99])
             drv = self._driver
             return {
                 "tables": {n: self.stats(n) for n in self._tables},

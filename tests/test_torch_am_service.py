@@ -277,3 +277,58 @@ def test_capacity_bound_and_reject_policy():
     with pytest.raises(ValueError, match="unknown backend"):
         svc.create_table("x", width=4, backend="analog_mc")
     assert svc.stats("r")["rows"] == 3
+
+
+def test_wait_histogram_is_exact_then_within_a_bucket():
+    from repro_torch.serve.am_service import _EXACT_WAITS, WaitHistogram
+
+    rng = np.random.default_rng(5)
+    h = WaitHistogram()
+    assert h.percentiles([50, 99]) == [0.0, 0.0]
+    waits = np.concatenate([np.zeros(10), rng.lognormal(-6, 2, 3000)])
+    h.add(waits[:1000])
+    h.add(waits[1000:])
+    assert h.percentiles([1, 50, 99]) == np.percentile(
+        waits, [1, 50, 99]).tolist()
+    more = rng.lognormal(-3, 1, 2 * _EXACT_WAITS)
+    h.add(more)
+    every = np.concatenate([waits, more])
+    assert h.n == every.size
+    step = 10 ** (1 / WaitHistogram.BUCKETS_PER_DECADE)
+    for q, got in zip((50, 90, 99), h.percentiles([50, 90, 99])):
+        want = np.percentile(every, q)
+        assert want / step <= got <= want * step, (q, got, want)
+    assert h.percentiles([0]) == [0.0]              # the zero waits
+    h.add([2e9])
+    assert h.percentiles([100]) == [WaitHistogram.HIGH]
+    h.clear()
+    assert h.n == 0 and h.percentiles([99]) == [0.0]
+
+
+def test_port_queue_wait_percentiles_cover_every_lookup():
+    """``stats()`` holds the queue waits of every resolved lookup, where
+    the reference keeps the last 4,096: 6,000 lookups, the earliest of
+    which waited longest, read p50 and p99 within one bucket of NumPy's
+    over all 6,000."""
+    from repro_torch.serve.am_service import WaitHistogram
+
+    rng = np.random.default_rng(31)
+    now = [0.0]
+    svc = _port(time_fn=lambda: now[0], max_batch=1 << 20)
+    svc.create_table("t", width=WIDTH, capacity=16)
+    rows = rng.integers(0, 8, (16, WIDTH)).astype(np.int32)
+    svc.append("t", rows)
+    submitted = np.sort(rng.uniform(1.0, 1000.0, 6000))
+    for i, t in enumerate(submitted):
+        now[0] = t
+        svc.submit("t", rows[i % 16])
+    now[0] = 1000.5
+    svc.flush()
+    s = svc.stats()
+    assert s["readbacks"] == 1
+    step = 10 ** (1 / WaitHistogram.BUCKETS_PER_DECADE)
+    waits = now[0] - submitted
+    for q in (50, 99):
+        want = np.percentile(waits, q)
+        got = s[f"queue_wait_p{q}"]
+        assert want / step <= got <= want * step, (q, got, want)

@@ -204,7 +204,7 @@ def run_saturation(smoke: bool = False, *, dim: int = 64,
         # synchronous reference: launch + readback serial per wave
         svc, names = mk(n_tables)
         _run_waves(svc, codes, workload, names, batch, waves, sync=True)
-        svc._wait_samples.clear()     # drop warmup waits from the p99
+        svc._waits.clear()     # drop warmup waits from the p99
         sync_s = _run_waves(svc, codes, workload, names, batch, waves,
                             sync=True)
         sync_p99 = svc.stats()["queue_wait_p99"]
@@ -212,7 +212,7 @@ def run_saturation(smoke: bool = False, *, dim: int = 64,
         # pipelined: background driver, dispatch overlapped with readback
         svc, names = mk(n_tables)
         _run_waves(svc, codes, workload, names, batch, waves, sync=True)
-        svc._wait_samples.clear()
+        svc._waits.clear()
         svc.start_driver(max_in_flight=4)
         try:
             async_s = _run_waves(svc, codes, workload, names, batch, waves,
