@@ -52,13 +52,28 @@
 // per-query threshold count; pass 2 merges the splits' lists into (Q, k)
 // and sums the counts (no atomics, so the result is deterministic).  Per
 // tile and query, one vote skips the tile when no row beats the list's
-// largest key; lists of k <= 32 are updated in registers.  Keys are unique
-// per row, so the list order is exactly ascending (distance, row): ties go
-// to the lowest row, and rows at index >= valid_rows carry distance
-// 0xFFFFFFFF (+inf) with their own row index.  Unfilled slots hold
+// largest key.  A vote that passes offers the tile's rows below that key to
+// the list.  A list of k <= 32 fits one register a lane and takes the keys
+// one after another there (a ballot finds a key's slot, a shuffle moves the
+// larger keys up), reading and writing shared memory once a call; a merge
+// would spend about as much a key and more on the list.  Longer lists take
+// all of a tile's candidates (up to 128) in one warp-wide merge
+// (warp_merge): each candidate is broadcast once and counted against the
+// list keys a lane holds in registers (2, 4 or 8, by k) and against the
+// other candidates, and every key is then written once to its new slot.
+// What bounds it is the instructions run a candidate: the broadcast, a
+// 64-bit compare for each of a lane's list keys and its own 4 candidates,
+// and one warp reduction (ballots in place of the reduction, fewer waits
+// but more instructions, ran slower); the list is read and written once a
+// merge.  An insert a candidate would shift the list in shared memory
+// instead: a chain of dependent loads, stores and barriers a key.  The
+// merge pass folds the splits' lists through the same two routines.  Keys
+// are unique per row, so the list order is exactly ascending (distance,
+// row): ties go to the lowest row, and rows at index >= valid_rows carry
+// distance 0xFFFFFFFF (+inf) with their own row index.  Unfilled slots hold
 // (+inf, 2^31 - 1).  A traced copy of pass 1 (unmasked, uncounted only)
-// also counts its votes, inserts and clock cycles (TopkStat) for
-// src/repro_torch/obs.py; the untraced pass is compiled without them.
+// also counts its votes, inserts, offered keys and clock cycles (TopkStat)
+// for src/repro_torch/obs.py; the untraced pass is compiled without them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -297,75 +312,144 @@ cam_search_kernel(const uint32_t* __restrict__ qp,
 }
 
 // Offer `key` (from every lane where `want` holds) to the sorted list
-// L[0, k) that one warp shares in shared memory; the list keeps the k
-// smallest keys.  Warp-uniform control flow throughout.  Up to k = 32 the
-// list is worked on in registers, one key a lane: a ballot finds where a
-// key goes and one shuffle moves the larger keys up.
-__device__ __forceinline__ void warp_insert(uint64_t* L, int k, uint64_t key,
-                                            bool want, int lane) {
+// L[0, k), k <= 32, that one warp shares in shared memory; the list keeps
+// the k smallest keys.  Warp-uniform control flow throughout.  The list is
+// worked on in registers, one key a lane: a ballot finds where a key goes
+// and one shuffle moves the larger keys up.  Returns the keys offered.
+__device__ __forceinline__ int warp_insert(uint64_t* L, int k, uint64_t key,
+                                           bool want, int lane) {
   unsigned ballot = __ballot_sync(0xFFFFFFFFu, want);
-  if (ballot == 0u) return;
-  if (k <= 32) {
-    uint64_t mine = lane < k ? L[lane] : SENTINEL;   // sorted over 32 lanes
-    while (ballot) {
-      const int src = __ffs(ballot) - 1;
-      ballot &= ballot - 1;
-      const uint64_t kk = __shfl_sync(0xFFFFFFFFu, key, src);
-      const int pos = __ffs(__ballot_sync(0xFFFFFFFFu, mine > kk)) - 1;
-      const uint64_t up = __shfl_up_sync(0xFFFFFFFFu, mine, 1);
-      if (pos >= 0 && pos < k && lane >= pos) mine = lane == pos ? kk : up;
-    }
-    if (lane < k) L[lane] = mine;
-    __syncwarp();
-    return;
-  }
+  if (ballot == 0u) return 0;
+  const int offered = __popc(ballot);
+  uint64_t mine = lane < k ? L[lane] : SENTINEL;     // sorted over 32 lanes
   while (ballot) {
     const int src = __ffs(ballot) - 1;
     ballot &= ballot - 1;
     const uint64_t kk = __shfl_sync(0xFFFFFFFFu, key, src);
-    if (kk < L[k - 1]) {
-      int below = 0;
-      for (int i = lane; i < k; i += 32) below += L[i] < kk;
+    const int pos = __ffs(__ballot_sync(0xFFFFFFFFu, mine > kk)) - 1;
+    const uint64_t up = __shfl_up_sync(0xFFFFFFFFu, mine, 1);
+    if (pos >= 0 && pos < k && lane >= pos) mine = lane == pos ? kk : up;
+  }
+  if (lane < k) L[lane] = mine;
+  __syncwarp();
+  return offered;
+}
+
+// Merge the keys c[0..3] of every lane that lie below the list's largest
+// key (the candidates, up to 128) into the sorted list L[0, k), k > 32,
+// that one warp shares in shared memory, keeping the k smallest, in one
+// step: lane l holds list slots l + 32 s, s < NS, in registers.  Each
+// candidate in turn is broadcast once; every lane counts it against its
+// list keys (`above`: the candidates below each, a byte a slot) and adds up
+// the keys of the list and the candidates below it, which one reduction
+// turns into the candidate's new slot.  List key i moves to slot
+// i + above_i.  Keys are unique (unfilled list slots hold SENTINEL, above
+// every candidate), so the new slots are a permutation of [0, k + m) and no
+// two writes collide; a key whose slot is k or more drops out.  The list is
+// left as one insert a candidate would leave it: the k smallest of it and
+// the candidates.  Returns the candidates offered.
+template <int NS>
+__device__ __forceinline__ int merge_slots(uint64_t* L, int k,
+                                           const uint64_t (&c)[4], int lane) {
+  const uint64_t last = L[k - 1];
+  int offered = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    offered += __popc(__ballot_sync(0xFFFFFFFFu, c[e] < last));
+  if (offered == 0) return 0;
+  uint64_t v[NS];
+  unsigned above[(NS + 3) / 4] = {};
+  int live = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int i = lane + 32 * s;
+    live += i < k;
+    v[s] = i < k ? L[i] : 0ull;          // no key lies below a dead slot's
+  }
+  int to[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    unsigned b = __ballot_sync(0xFFFFFFFFu, c[e] < last);
+    while (b) {
+      const int src = __ffs(b) - 1;
+      b &= b - 1;
+      const uint64_t x = __shfl_sync(0xFFFFFFFFu, c[e], src);
+      int below = live;                  // my list keys, then candidates
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const bool a = x < v[s];
+        above[s / 4] += a ? 1u << (8 * (s % 4)) : 0u;
+        below -= a;
+      }
+#pragma unroll
+      for (int f = 0; f < 4; ++f) below += c[f] < x;
       below = __reduce_add_sync(0xFFFFFFFFu, below);
-      uint64_t moved[MAX_K / 32];
-#pragma unroll
-      for (int s = 0; s < MAX_K / 32; ++s) {
-        const int i = lane + 32 * s;
-        moved[s] = (i >= below && i < k - 1) ? L[i] : 0ull;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int s = 0; s < MAX_K / 32; ++s) {
-        const int i = lane + 32 * s;
-        if (i >= below && i < k - 1) L[i + 1] = moved[s];
-      }
-      if (lane == 0) L[below] = kk;
-      __syncwarp();
+      if (lane == src) to[e] = below;
     }
   }
+  __syncwarp();                          // every lane has read the list
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int i = lane + 32 * s;
+    const int up = (above[s / 4] >> (8 * (s % 4))) & 0xFF;
+    if (i < k && up && i + up < k) L[i + up] = v[s];
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+    if (c[f] < last && to[f] < k) L[to[f]] = c[f];
+  __syncwarp();
+  return offered;
+}
+
+// merge_slots for any k in (32, MAX_K], with as many list slots a lane as k
+// needs.
+__device__ __forceinline__ int warp_merge(uint64_t* L, int k,
+                                          const uint64_t (&c)[4], int lane) {
+  static_assert(MAX_K <= 8 * 32, "a lane holds at most 8 list slots");
+  if (k <= 64) return merge_slots<2>(L, k, c, lane);
+  if (k <= 128) return merge_slots<4>(L, k, c, lane);
+  return merge_slots<8>(L, k, c, lane);
 }
 
 // Offer the keys of rows r0 .. r0 + 3 (distances d0 .. d3; rows at or past
-// r_end are not offered) from every lane.  Not inlined: the scan calls it
-// for few tiles, and one copy keeps the scan's code small.
-__device__ __noinline__ void insert_rows(uint64_t* L, int k, uint32_t d0,
-                                         uint32_t d1, uint32_t d2,
-                                         uint32_t d3, int r0, int r_end,
-                                         int lane) {
+// r_end are not offered) from every lane to the list at slot `list` of the
+// block's dynamic shared memory; returns the keys offered.  Up to k = 32
+// one key after another through the register list, above it all at once
+// through warp_merge.  Not inlined: the scan calls it for few tiles, and
+// one copy keeps the scan's code small.  The list comes as a slot and not
+// a pointer so that its loads and stores address shared memory directly.
+__device__ __noinline__ int insert_rows(int list, int k, uint32_t d0,
+                                        uint32_t d1, uint32_t d2,
+                                        uint32_t d3, int r0, int r_end,
+                                        int lane) {
+  extern __shared__ uint64_t smem[];
+  uint64_t* L = smem + list;
   const uint32_t dk[4] = {d0, d1, d2, d3};
+  if (k > 32) {
+    uint64_t c[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)          // ~0: above every list key
+      c[e] = r0 + e < r_end
+                 ? ((uint64_t)dk[e] << 32) | (uint32_t)(r0 + e)
+                 : ~0ull;
+    return warp_merge(L, k, c, lane);
+  }
+  int offered = 0;
 #pragma unroll 1
   for (int e = 0; e < 4; ++e) {
     const int r = r0 + e;
     const uint64_t key = ((uint64_t)dk[e] << 32) | (uint32_t)r;
-    warp_insert(L, k, key, r < r_end && key < L[k - 1], lane);
+    offered += warp_insert(L, k, key, r < r_end && key < L[k - 1], lane);
   }
+  return offered;
 }
 
 // The counters a traced partial pass adds to its `stats` buffer, one
 // uint64 each (src/repro_torch/obs.py's `cam_topk` group, in this order):
-// votes (one a query a tile), votes that called insert_rows, and SM clock
-// cycles, summed over warps, in tile_counts and in the rest of each tile.
-enum TopkStat { kVotes, kInserts, kCyclesCompare, kCyclesSelect };
+// votes (one a query a tile), votes that called insert_rows, SM clock
+// cycles, summed over warps, in tile_counts and in the rest of each tile,
+// and the keys those calls offered to the lists.
+enum TopkStat { kVotes, kInserts, kCyclesCompare, kCyclesSelect, kOffered };
 
 // Pass 1: block (query tile, split) -> the k smallest keys of its rows for
 // each of its queries, in part_keys[q][split][0, k), and its threshold
@@ -411,7 +495,7 @@ __device__ __forceinline__ void topk_partial(
   __syncthreads();
 
   [[maybe_unused]] long long cycles_compare = 0, cycles_select = 0;
-  [[maybe_unused]] unsigned votes = 0, inserts = 0;
+  [[maybe_unused]] unsigned votes = 0, inserts = 0, offered = 0;
   for (int n0 = r_begin; n0 < r_end; n0 += BN) {
     [[maybe_unused]] long long t0 = 0, t1 = 0;
     if constexpr (TRACED) t0 = clock64();
@@ -459,9 +543,12 @@ __device__ __forceinline__ void topk_partial(
       }
       if constexpr (TRACED) ++votes;
       if (__any_sync(0xFFFFFFFFu, cand)) {
-        if constexpr (TRACED) ++inserts;
-        insert_rows(L, k, dk[0], dk[1], dk[2], dk[3], n0 + 4 * lane, r_end,
-                    lane);
+        [[maybe_unused]] const int o = insert_rows(
+            ql * k, k, dk[0], dk[1], dk[2], dk[3], n0 + 4 * lane, r_end, lane);
+        if constexpr (TRACED) {
+          ++inserts;
+          offered += o;
+        }
       }
     }
     __syncthreads();
@@ -485,6 +572,7 @@ __device__ __forceinline__ void topk_partial(
       atomicAdd(stats + kInserts, (unsigned long long)inserts);
       atomicAdd(stats + kCyclesCompare, (unsigned long long)cycles_compare);
       atomicAdd(stats + kCyclesSelect, (unsigned long long)cycles_select);
+      atomicAdd(stats + kOffered, (unsigned long long)offered);
     }
   }
 }
@@ -521,7 +609,9 @@ cam_topk_partial_traced_kernel(const uint32_t* __restrict__ qp,
 }
 
 // Pass 2: one warp per query merges its splits' lists into the final
-// (k,) rows and distances and sums the splits' threshold counts.
+// (k,) rows and distances and sums the splits' threshold counts: 32 keys a
+// step through the register list up to k = 32, 128 through warp_merge
+// above it.
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
 cam_topk_merge_kernel(const uint64_t* __restrict__ part_keys,
                       const int32_t* __restrict__ part_counts,
@@ -538,10 +628,22 @@ cam_topk_merge_kernel(const uint64_t* __restrict__ part_keys,
   __syncwarp();
   const uint64_t* src = part_keys + (size_t)qq * splits * k;
   const int total = splits * k;
-  for (int base = 0; base < total; base += 32) {
-    const int c = base + lane;
-    const uint64_t key = c < total ? src[c] : SENTINEL;
-    warp_insert(L, k, key, key < L[k - 1], lane);
+  if (k <= 32) {
+    for (int base = 0; base < total; base += 32) {
+      const int c = base + lane;
+      const uint64_t key = c < total ? src[c] : SENTINEL;
+      warp_insert(L, k, key, key < L[k - 1], lane);
+    }
+  } else {
+    for (int base = 0; base < total; base += 128) {
+      uint64_t key[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = base + 32 * e + lane;
+        key[e] = c < total ? src[c] : SENTINEL;
+      }
+      warp_merge(L, k, key, lane);
+    }
   }
   for (int i = lane; i < k; i += 32) {
     const uint64_t key = L[i];
@@ -724,7 +826,7 @@ extern "C" int cam_search_launch(const void* qp, const void* tp,
 // null; with `count_le`, `part_counts` ((Q, splits) int32) and `out_count`
 // ((Q,) int32) must be given.  `part_keys` is (Q, splits, k) uint64
 // scratch.  `valid_rows` is a device int32 the kernel reads itself.
-// `stats`, null or four device uint64 (TopkStat), selects the traced pass 1,
+// `stats`, null or five device uint64 (TopkStat), selects the traced pass 1,
 // which adds its counters there; it takes no `cp` and no `count_le`.
 // `tile_q` (16 or 64) is the queries per block of pass 1.
 extern "C" int cam_search_topk_launch(

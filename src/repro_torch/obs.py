@@ -34,6 +34,12 @@ the launches made while a profiler recorded and those traced):
     SM clock cycles, summed over warps, spent in the tile compare
     (``tile_counts``, with its loads) and in the rest of each tile: the
     distance store, two barriers, the vote and the inserts.
+``cam_topk.offered``
+    the keys those votes offered to the lists: the tile's rows below the
+    list's largest key when ``insert_rows`` was called (below the largest
+    key as each key came, up to k = 32, where they go in one at a time).
+    Above k = 32 one merge takes a vote's keys at once, so offered over
+    inserts is how many single inserts each merge stands for.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import torch
 
 #: The counter groups and their fields, in the order kernels write them.
 COUNTERS = {"cam_topk": ("votes", "inserts", "cycles_compare",
-                         "cycles_select")}
+                         "cycles_select", "offered")}
 
 #: While a profiler records, one launch in this many runs traced.
 TRACE_EVERY = 8

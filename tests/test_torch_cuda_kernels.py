@@ -53,14 +53,24 @@ def dev():
 
 
 @pytest.mark.parametrize("small_tile_max_q", [16, 0])
-@pytest.mark.parametrize("bits,qn,n,d,care,k,valid_rows", [
-    (1, 3, 700, 24, False, 256, None),
-    (3, 40, 5000, 200, True, 10, 4321),
-    (3, 80, 999, 16, False, 1, 3),
-    (3, 16, 3000, 64, True, 10, 2999),
+@pytest.mark.parametrize("bits,qn,n,d,care,counted,k,valid_rows", [
+    (1, 3, 700, 24, False, True, 256, None),
+    (3, 40, 5000, 200, True, True, 10, 4321),
+    (3, 80, 999, 16, False, True, 1, 3),
+    (3, 16, 3000, 64, True, True, 10, 2999),
+    # k > 32, the lists merged: splits of two or three tiles (hundreds of
+    # splits), whose first tile offers all 128 rows to an open list (more
+    # than k where k < 128); valid_rows inside a split
+    (3, 16, 200_000, 64, False, False, 100, None),
+    (3, 40, 70_000, 48, True, True, 33, 65_432),
+    (1, 24, 150_000, 32, True, False, 64, 100_001),
+    (3, 130, 60_000, 128, False, True, 128, 59_999),
+    (7, 8, 100_000, 96, False, False, 256, 77_777),
+    (3, 64, 90_000, 64, True, True, 256, None),
 ])
 def test_kernels_bitwise_against_plain(dev, monkeypatch, small_tile_max_q,
-                                       bits, qn, n, d, care, k, valid_rows):
+                                       bits, qn, n, d, care, counted, k,
+                                       valid_rows):
     # 0 sends small batches to the 64-query blocks as well
     monkeypatch.setattr(kernel, "SMALL_TILE_MAX_Q", small_tile_max_q)
     rng = np.random.default_rng(n)
@@ -70,13 +80,15 @@ def test_kernels_bitwise_against_plain(dev, monkeypatch, small_tile_max_q,
     q[0] = t[1]
     c = (torch.from_numpy((rng.random((n, d)) > 0.3).astype(np.int32))
          .to(dev) if care else None)
-    thr = torch.full((qn, 1), float(d // 3), device=dev)
+    thr = (torch.full((qn, 1), float(d // 3), device=dev) if counted
+           else None)
     q8, t8 = q.to(torch.int8), t.to(torch.int8)
     assert torch.equal(ops.mismatch_counts(q8, t8, bits, care=c),
                        ref.mismatch_counts(q8, t8, c))
     got = ops.topk_fused(q8, t8, k, bits, valid_rows=valid_rows, care=c,
                          count_le=thr)
     want = ref.topk(q8, t8, k, valid_rows=valid_rows, care=c, count_le=thr)
+    assert len(got) == len(want) == (3 if counted else 2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

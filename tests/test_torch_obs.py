@@ -12,6 +12,7 @@ pass, with exact vote counts.
 """
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import obs
 from repro_torch.core import am
 from repro_torch.index import ivf
+from repro_torch.kernels import _build
 from repro_torch.kernels.cam_search import kernel
 from repro_torch.serve import AMService
 
@@ -67,7 +69,8 @@ def test_counters_stay_zero_without_a_profiler():
     c = obs.counters()
     assert set(c) == {"cam_topk.votes", "cam_topk.inserts",
                       "cam_topk.cycles_compare", "cam_topk.cycles_select",
-                      "cam_topk.launches", "cam_topk.traced_launches"}
+                      "cam_topk.offered", "cam_topk.launches",
+                      "cam_topk.traced_launches"}
     assert all(v == 0 for v in c.values())
 
 
@@ -80,7 +83,7 @@ def test_one_launch_in_trace_every_is_traced_and_counters_scale():
         0, obs.TRACE_EVERY, 2 * obs.TRACE_EVERY]
     assert all(b is traced[0] for b in traced)
     for b in traced:                  # what each traced launch would add
-        b += torch.tensor([128, 12, 300, 100])
+        b += torch.tensor([128, 12, 300, 100, 40])
     c = obs.counters()
     assert c["cam_topk.launches"] == made
     assert c["cam_topk.traced_launches"] == 3
@@ -88,8 +91,20 @@ def test_one_launch_in_trace_every_is_traced_and_counters_scale():
     assert c["cam_topk.inserts"] == 12 * made
     assert c["cam_topk.cycles_compare"] == 300 * made
     assert c["cam_topk.cycles_select"] == 100 * made
+    assert c["cam_topk.offered"] == 40 * made
     obs.reset()
     assert all(v == 0 for v in obs.counters().values())
+
+
+def test_counter_fields_are_in_the_order_the_kernel_writes_them():
+    """``obs.COUNTERS["cam_topk"]`` names the words of the traced partial
+    pass's ``stats`` buffer: the ``TopkStat`` enum of ``cam_search.cu``
+    (``kCyclesCompare`` is ``cycles_compare``), in its order."""
+    src = (_build.CSRC / "cam_search.cu").read_text()
+    body = re.search(r"enum TopkStat \{([^}]*)\}", src).group(1)
+    fields = tuple(re.sub(r"(?<!^)([A-Z])", r"_\1", name.strip()[1:]).lower()
+                   for name in body.split(","))
+    assert fields == obs.COUNTERS["cam_topk"]
 
 
 @pytest.mark.parametrize("backend,children", [
@@ -185,6 +200,9 @@ def test_traced_partial_pass_is_bitwise_and_counts_every_vote(dev, k):
     assert 0 <= c["cam_topk.inserts"] <= c["cam_topk.votes"]
     assert c["cam_topk.cycles_compare"] > 0
     assert c["cam_topk.cycles_select"] > 0
+    # every vote that inserts offers a key, and only those offer keys
+    assert c["cam_topk.offered"] >= c["cam_topk.inserts"]
+    assert (c["cam_topk.offered"] == 0) == (c["cam_topk.inserts"] == 0)
     search()
     torch.cuda.synchronize()
     assert obs.counters() == c                  # off again
