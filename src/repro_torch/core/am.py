@@ -402,9 +402,11 @@ def thermometer(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def _expand_l1(queries, codes, bits, distance):
-    """Apply the thermometer trick for digital backends in L1 mode."""
+    """Apply the thermometer trick for digital backends in L1 mode (in the
+    span ``cam.expand.l1`` while a profiler records)."""
     if distance == "l1" and bits > 1:
-        return thermometer(queries, bits), thermometer(codes, bits), 1
+        with obs.span("cam.expand.l1"):
+            return thermometer(queries, bits), thermometer(codes, bits), 1
     return queries, codes, bits
 
 

@@ -10,6 +10,13 @@ Port of :mod:`repro.core.hdc`.  Stages:
                 whose stored code has the FEWEST mismatching cells wins (the
                 analog ML-discharge ranking), via :mod:`repro_torch.core.am`.
 
+:func:`classify` is the served inference entry: a :class:`Classifier` holds
+the projection and the class table, built once, and each batch of features
+runs the fused encode + quantize kernel and one L1 associative search.  Its
+query codes are per row (the analytic thresholds scaled by ``||x||``), so a
+query's answer never depends on its batchmates.  :func:`predict_cam` keeps
+the reference's batch-wide quantization.
+
 A model's tensors live on one device (the GPU unless ``device="cpu"``);
 host arrays passed to these functions go to the model's device.  The
 functions never update a model's tensors in place.  On the GPU the class
@@ -20,11 +27,16 @@ run to run; on the CPU they are deterministic.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import quantize as q
 from repro_torch.device import resolve_device
+
+if TYPE_CHECKING:
+    from repro_torch.core import am
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +220,54 @@ def predict_cam_topk(model: HDCModel, hvs, k: int, *, backend: str = "ref",
     from repro_torch.core import am
     table = class_table(model, distance=distance)
     return am.search(table, model.quantize_queries(hvs), k=k, backend=backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class Classifier:
+    """A served HDC classifier: the (n, D) float32 projection and the class
+    codes as an :class:`repro_torch.core.am.AMTable` (K rows of D symbols,
+    the table's ``bits`` and ``distance``), on one device."""
+
+    projection: torch.Tensor
+    table: am.AMTable
+
+
+def make_classifier(projection, class_codes, *, bits: int = 3,
+                    distance: str = "l1", device=None) -> Classifier:
+    """A :class:`Classifier` from a projection and (K, D) class level codes
+    (such as :meth:`HDCModel.quantized_class_codes`), on ``device`` (default
+    the projection's if it is a tensor, else the GPU)."""
+    from repro_torch.core import am
+    if device is None and isinstance(projection, torch.Tensor):
+        device = projection.device
+    dev = resolve_device(device)
+    proj = _on(projection, dev).contiguous()
+    table = am.make_table(class_codes, bits=bits, distance=distance,
+                          device=dev)
+    if table.width != proj.shape[1]:
+        raise ValueError(f"class codes of width {table.width} for a "
+                         f"projection to D={proj.shape[1]}")
+    return Classifier(proj, table)
+
+
+def classify(clf: Classifier, x, k: int = 1, *, backend: str = "cuda"):
+    """The ``k`` nearest classes of each row of ``x`` (an
+    :class:`am.AMSearchResult`, ascending (distance, class id)).
+
+    ``x`` is (B, n) features.  The fused kernel encodes and quantizes them,
+    ``code = #{t : (x @ P) > t * ||x||}`` (:func:`repro_torch.kernels.
+    hdc_encode.ops.encode_quantize`; its plain version on the CPU), and one
+    search of the class table ranks them.  While a profiler records, the
+    call runs in the span ``hdc.classify`` and the encode in ``hdc.encode``.
+    """
+    from repro_torch.core import am
+    from repro_torch.kernels.hdc_encode import ops as encode_ops
+    with obs.span("hdc.classify"):
+        x = _on(x, clf.projection.device)
+        with obs.span("hdc.encode"):
+            codes = encode_ops.encode_quantize(x, clf.projection,
+                                               clf.table.bits)
+        return am.search(clf.table, codes, k=k, backend=backend)
 
 
 def accuracy(pred, labels) -> float:

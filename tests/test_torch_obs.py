@@ -1,8 +1,9 @@
 """``repro_torch.obs``: spans and in-kernel counters, on only while a
 profiler records.
 
-On the CPU: the shared no-op span without a profiler; the search, index
-and driver spans nested in an exported trace; counters that stay zero.
+On the CPU: the shared no-op span without a profiler; the search, index,
+driver and HDC classify spans nested in an exported trace; counters that
+stay zero.
 The launches traced, one in ``obs.TRACE_EVERY``, and the counters scaled
 to all of them.  Marked ``cuda`` (skipped without a card; run on the card
 with ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
@@ -20,7 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import obs
-from repro_torch.core import am
+from repro_torch.core import am, hdc
 from repro_torch.index import ivf
 from repro_torch.kernels import _build
 from repro_torch.kernels.cam_search import kernel
@@ -124,6 +125,46 @@ def test_search_spans_nest_under_a_cpu_profiler(backend, children,
         assert _inside(spans, child, "am.search"), child
 
 
+def _classifier(dim=64, device="cpu"):
+    gen = torch.Generator().manual_seed(dim)
+    proj = torch.randn((40, dim), generator=gen)
+    codes = torch.randint(0, 8, (6, dim), generator=gen, dtype=torch.int32)
+    x = torch.randn((9, 40), generator=gen)
+    return hdc.make_classifier(proj.to(device), codes, device=device), \
+        x.to(device)
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_hdc_classify_spans_nest_under_a_cpu_profiler(backend, tmp_path):
+    clf, x = _classifier()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        hdc.classify(clf, x, k=2, backend=backend)
+    spans = _annotations(prof, tmp_path)
+    assert len(spans["hdc.classify"]) == 1
+    assert len(spans["cam.expand.l1"]) == 1
+    assert _inside(spans, "hdc.encode", "hdc.classify")
+    assert _inside(spans, "am.search", "hdc.classify")
+    assert _inside(spans, "cam.expand.l1", "am.search")
+    assert not _inside(spans, "cam.expand.l1", "hdc.encode")
+
+
+def test_hdc_and_l1_spans_cost_nothing_without_a_profiler(monkeypatch,
+                                                          tmp_path):
+    """No ``record_function`` is made outside a profiler; a Hamming table
+    expands nothing, so it has no ``cam.expand.l1`` span under one."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) unprofiled")
+
+    clf, x = _classifier()
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    hdc.classify(clf, x, k=2, backend="cuda")
+    monkeypatch.undo()
+    hamming = am.make_table(_codes(50, 16), device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        am.search(hamming, _codes(3, 16, 1), k=2, backend="cuda")
+    assert "cam.expand.l1" not in _annotations(prof, tmp_path)
+
+
 def test_index_and_driver_spans(tmp_path):
     codes = _codes(512, 16)
     index = ivf.build(am.make_table(codes, device="cpu"), sets=8)
@@ -161,6 +202,18 @@ def test_card_search_spans(dev, tmp_path):
     spans = _annotations(prof, tmp_path)
     for child in ("am.search.prep", "cam.cast.queries", "cam.cast.table",
                   "cam.pack", "cam.topk"):
+        assert _inside(spans, child, "am.search"), child
+
+
+@pytest.mark.cuda
+def test_card_hdc_classify_spans(dev, tmp_path):
+    clf, x = _classifier(dim=4096, device=dev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        hdc.classify(clf, x, k=1, backend="cuda")
+        torch.cuda.synchronize()
+    spans = _annotations(prof, tmp_path)
+    assert _inside(spans, "hdc.encode", "hdc.classify")
+    for child in ("cam.expand.l1", "cam.pack", "cam.topk"):
         assert _inside(spans, child, "am.search"), child
 
 
