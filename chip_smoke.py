@@ -436,7 +436,8 @@ def phase_kernels():
     from repro_torch.kernels.cam_search import ops, ref
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    err = {"cam_search": 0.0, "cam_search_topk": 0.0, "cam_pack": 0.0}
+    err = {"cam_search": 0.0, "cam_search_topk": 0.0, "cam_pack": 0.0,
+           "cam_pack_l1": 0.0}
     for name, bits, qn, n, d, has_care, counted, vr, k, l1 in kernel_cases():
         m = 1 << bits
         codes = rng.integers(0, m, (n, d)).astype(np.int32)
@@ -445,22 +446,26 @@ def phase_kernels():
         q[0] = codes[0]
         care = ((rng.random((n, d)) > 0.25).astype(np.int32)
                 if has_care else None)
-        if l1:
-            if care is not None:
-                care = np.repeat(care, m - 1, axis=-1)
-            codes, q, bits = _thermo(codes, bits), _thermo(q, bits), 1
         t_q = torch.from_numpy(q).to(dev).to(torch.int8)
         t_t = torch.from_numpy(codes).to(dev).to(torch.int8)
         t_c = None if care is None else torch.from_numpy(care).to(dev)
+        # plain: an L1 search's level codes counted on their thermometer
+        # expansion at one bit; the kernels take the codes (the L1 pack)
+        p_q, p_t, p_c = t_q, t_t, t_c
+        if l1:
+            p_q, p_t = (torch.from_numpy(_thermo(x, bits)).to(dev)
+                        .to(torch.int8) for x in (q, codes))
+            if care is not None:
+                p_c = torch.from_numpy(np.repeat(care, m - 1, axis=-1)).to(dev)
         thr = None
         if counted:
             thr = torch.from_numpy(
                 rng.integers(0, d // 2, (qn, 1)).astype(np.float32)).to(dev)
         # dense tier
-        want = ref.mismatch_counts(t_q, t_t, t_c)
+        want = ref.mismatch_counts(p_q, p_t, p_c)
         for tile in _tiles(qn):
             with _query_tile(tile):
-                got = ops.mismatch_counts(t_q, t_t, bits, care=t_c)
+                got = ops.mismatch_counts(t_q, t_t, bits, care=t_c, l1=l1)
             torch.cuda.synchronize()
             check(got.dtype == torch.int32
                   and got.shape == (qn, codes.shape[0]),
@@ -470,11 +475,11 @@ def phase_kernels():
             check(diff == 0,
                   f"{name}/{tile}: cam_search differs from plain by {diff}")
         # fused tier
-        want = ref.topk(t_q, t_t, k, valid_rows=vr, care=t_c, count_le=thr)
+        want = ref.topk(p_q, p_t, k, valid_rows=vr, care=p_c, count_le=thr)
         for tile in _tiles(qn):
             with _query_tile(tile):
                 got = ops.topk_fused(t_q, t_t, k, bits, valid_rows=vr,
-                                     care=t_c, count_le=thr)
+                                     care=t_c, count_le=thr, l1=l1)
             torch.cuda.synchronize()
             for part, g, w in zip(("rows", "distances", "counts"), got, want):
                 check(torch.equal(g, w), f"{name}/{tile}: cam_search_topk "
@@ -797,10 +802,10 @@ def _drive(svc, path, table, queries, *, indexed=False, banks=1, **kw):
     The launch counts are set to 0 just before the first submit and read
     just after the last lookup resolved, so they are this path's alone; the
     groups it dispatched are read from the table's bucket counts.  Each
-    group is one search, which launches the pack kernel and one search
-    kernel once per bank (``banks`` of a sharded service): the fused one,
-    or the dense one for k above 256.  An ``indexed`` table's groups follow
-    :func:`_ivf_launches` instead.
+    group is one search, which launches the pack kernel (the L1 pack on a
+    multi-bit L1 table) and one search kernel once per bank (``banks`` of a
+    sharded service): the fused one, or the dense one for k above 256.  An
+    ``indexed`` table's groups follow :func:`_ivf_launches` instead.
     """
     from repro_torch.core import am
     check(svc.drain(timeout=600), f"{path}: driver busy before the path")
@@ -821,7 +826,10 @@ def _drive(svc, path, table, queries, *, indexed=False, banks=1, **kw):
     else:
         tier = ("cam_search" if kw.get("k", 1) > am.FUSED_K_MAX
                 else "cam_search_topk")
-        want = {name: groups * banks if name in (tier, "cam_pack") else 0
+        t = svc._tables[table].table
+        pack = ("cam_pack_l1" if t.distance == "l1" and t.bits > 1
+                else "cam_pack")
+        want = {name: groups * banks if name in (tier, pack) else 0
                 for name in launches}
         check(launches == want, f"{path}: launches {launches}, expected "
               f"{want} for {groups} groups")
@@ -957,7 +965,7 @@ def phase_service():
                "queue_wait_p99_s": s["queue_wait_p99"],
                "groups": s["readbacks"], "fill_s": fill_s}
     return {"svc": svc, "paths": paths, "service": service,
-            "queries": queries, "l1_queries": l1_codes[l1_rows[:4]],
+            "queries": queries, "l1_queries": l1_codes[l1_rows],
             "stored": stored, "responses": resp, "tcam_query": base[7],
             "tcam_exact": exact_t}
 
@@ -1772,9 +1780,12 @@ def phase_app():
     data = {name: _hdc_setup(name) for name in ("isolet", "ucihar", "pamap")}
     data["ucihar_1500_500"] = _hdc_setup("ucihar", 1500, 500)
     n_cam = len(set(HDC_FIG11A + HDC_FIG11B)) + 2      # + the ucihar two
+    # L1 searches of multi-bit codes take the L1 pack (ucihar: 3 bits, 1 bit)
+    n_l1 = sum(b > 1 for _, b in set(HDC_FIG11A + HDC_FIG11B)) + 1
     (accs, cam_calls), paths["hdc_isolet"] = _run_path(
         "hdc_isolet", lambda: _hdc_isolet(data),
-        {"cam_search_topk": n_cam, "cam_pack": n_cam})
+        {"cam_search_topk": n_cam, "cam_pack": n_cam - n_l1,
+         "cam_pack_l1": n_l1})
     check(cam_calls == n_cam, f"hdc_isolet made {cam_calls} CUDA searches")
     print(f"  hdc_isolet accuracies: {json.dumps(accs)}")
     paths["hdc_isolet"]["accuracy"] = accs
@@ -3465,16 +3476,25 @@ def _max_diff(got, want):
                for g, w in zip(got.split(64), want.split(64)))
 
 
-def _time_dense(q8, t8, levels, groups, err, tier=None):
+def _time_dense(q8, t8, levels, groups, err, tier=None, l1=False):
     """One shape of the dense kernel: held against plain, then timed
     through its wrapper (the pack launch included), with
     ``torch.cdist(p=0)`` on float copies as the library call.  ``tier``,
-    where given, is another call that must return plain's matrix too."""
+    where given, is another call that must return plain's matrix too.
+    ``l1``: the symbols are level codes, ``levels = 2^bits``, searched at
+    L1 distance (the L1 pack); plain and the library call count on their
+    thermometer expansion."""
     import torch
+    from repro_torch.core import am
     from repro_torch.kernels.cam_search import kernel, ref
     (qn, d), n = q8.shape, t8.shape[0]
-    plain_ms, want = _timed_once(lambda: ref.mismatch_counts(q8, t8))
-    got = kernel.cam_search(q8, t8, levels=levels)
+    pq, pt, width = q8, t8, d
+    if l1:
+        bits = levels.bit_length() - 1
+        pq, pt = (am.thermometer(x, bits).to(torch.int8) for x in (q8, t8))
+        width = ref.l1_width(d, bits)
+    plain_ms, want = _timed_once(lambda: ref.mismatch_counts(pq, pt))
+    got = kernel.cam_search(q8, t8, levels=levels, l1=l1)
     diff = _max_diff(got, want)
     err["cam_search"] = max(err["cam_search"], diff)
     check(diff == 0, f"cam_search differs from plain by {diff} at "
@@ -3484,11 +3504,13 @@ def _time_dense(q8, t8, levels, groups, err, tier=None):
         check(torch.equal(tier(), want), f"the dense tier differs from "
               f"plain at Q={qn} N={n} D={d}")
     del want
-    ms = _time_ms(lambda: kernel.cam_search(q8, t8, levels=levels), 10)
-    qf, tf = q8.float(), t8.float()
+    ms = _time_ms(lambda: kernel.cam_search(q8, t8, levels=levels, l1=l1),
+                  10)
+    qf, tf = pq.float(), pt.float()
+    del pq, pt
     lib_ms = _time_ms(lambda: torch.cdist(qf, tf, p=0), 5, 1)
     del qf, tf
-    t_b, t_o = _bound_parts(qn * d + n * d + qn * n * 4, qn * n * d)
+    t_b, t_o = _bound_parts(qn * d + n * d + qn * n * 4, qn * n * width)
     return {"Q": qn, "N": n, "D": d, "groups": groups, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o)}
@@ -3544,6 +3566,40 @@ def _time_pack(q8, t8, levels, groups):
             "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o)}
 
 
+def _time_pack_l1(q8, t8, bits, groups):
+    """One shape of the L1 pack kernel: held against plain bitwise, with a
+    care plane and without, then timed (without, as the L1 paths run it):
+    ``ms`` one call through the wrapper, ``device_ms`` the device's time a
+    call in a CUDA graph.  Its bound is the bytes it must move: the int8
+    codes read once, the two plane words of each 32-symbol group written
+    once."""
+    import torch
+    from repro_torch.kernels.cam_search import kernel, ref
+    (qn, d), n = q8.shape, t8.shape[0]
+    gen = torch.Generator(device=t8.device).manual_seed(SEED)
+    care = (torch.rand(t8.shape, generator=gen, device=t8.device)
+            > 0.25).to(torch.int8)
+    plain_ms, want = _timed_once(lambda: (ref.pack_planes_l1(q8, bits),
+                                          ref.pack_planes_l1(t8, bits)))
+    for c, w_c in ((None, None), (care, ref.pack_care_l1(care, bits))):
+        got = kernel.pack_l1(q8, t8, bits=bits, care=c)
+        check(all(g is None and w is None or torch.equal(g, w)
+                  for g, w in zip(got, (*want, w_c), strict=True)),
+              f"cam_pack_l1 differs from plain at Q={qn} N={n} D={d} "
+              f"bits={bits} care={c is not None}")
+    del got, want, care, w_c
+    ms = _time_ms(lambda: kernel.pack_l1(q8, t8, bits=bits), 10)
+    device_ms = _graph_ms(lambda: kernel.pack_l1(q8, t8, bits=bits), 20)
+    width = ref.l1_width(d, bits)
+    _, words, gp = ref.plane_layout(width, 2)
+    t_b, t_o = _bound_parts((qn + n) * (d + gp * words * 4),
+                            (qn + n) * width)
+    return {"Q": qn, "N": n, "D": d, "bits": bits, "groups": groups,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bytes_ms": t_b, "ops_ms": t_o,
+            "bound_ms": max(t_b, t_o)}
+
+
 def _tile_ms(fn):
     """The kernel call ``fn`` timed with 16- and with 64-query blocks."""
     out = {}
@@ -3568,14 +3624,15 @@ def _row(name, replaces, path, paths, shapes, err,
     t_b, t_o = mean("bytes_ms"), mean("ops_ms")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches": sum(p["launches"].get(name, 0)
+                            for p in paths.values()),
             "max_abs_err": err[name], "ms": mean("ms"),
             "plain_ms": mean("plain_ms"), "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": (None if main[0]["library_ms"] is None
                            else mean("library_ms")),
             "timed_path": path,
-            "launches_by_path": {p: v["launches"][name]
+            "launches_by_path": {p: v["launches"].get(name, 0)
                                  for p, v in paths.items()},
             **{k: mean(k) for k in keys}, "shapes": shapes}
 
@@ -3607,7 +3664,6 @@ def _topk_sweep_shapes(fused, dense, packs, err):
 
 def phase_timing(run, err):
     import torch
-    from repro_torch.core import am
     from repro_torch.kernels.cam_search import kernel
     svc, paths = run["svc"], run["paths"]
     levels = 1 << BITS
@@ -3640,23 +3696,41 @@ def phase_timing(run, err):
     packs = [_time_pack(batch(qb), t8, levels, n)
              for qb, n in buckets.items()]
 
-    # dense kernel: the L1 k = 300 path's thermometer-expanded table (its
-    # queries padded to the bucket as the service pads them), then the
-    # responses table at Q = 64
+    # the L1 paths' table and queries, as int8 level codes; their queries
+    # padded to each bucket as the service pads them
     l1_codes = svc._tables["l1"].table.codes                # (65536, 256)
-    l1_expand_ms = _time_ms(
-        lambda: am.thermometer(l1_codes, BITS).to(torch.int8), 5)
-    l1_t8 = am.thermometer(l1_codes, BITS).to(torch.int8)
-    l1_q = am.thermometer(torch.from_numpy(run["l1_queries"]).to(dev),
-                          BITS).to(torch.int8)
+    l1_t8 = l1_codes.to(torch.int8)
+    l1_q = torch.from_numpy(run["l1_queries"]).to(dev).to(torch.int8)
+
+    def l1_batch(qb, rows):
+        q8 = torch.zeros((qb, l1_q.shape[1]), dtype=torch.int8, device=dev)
+        q8[:min(qb, rows)] = l1_q[:min(qb, rows)]
+        return q8
+
+    # L1 pack kernel, at each bucket size the L1 paths dispatched, then at
+    # the HDC cell's batch (4,096 queries and 26 class rows of D = 4,096
+    # 3-bit codes; codes drawn uniformly)
+    l1_packs = [{**_time_pack_l1(l1_batch(qb, rows), l1_t8, BITS, n),
+                 "path": path}
+                for path, rows in (("l1_k10", len(l1_q)), ("l1_k300", 4))
+                for qb, n in paths[path]["buckets"].items()]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    hdc_q, hdc_t = (torch.randint(0, 1 << BITS, shape, generator=gen,
+                                  device=dev, dtype=torch.int8)
+                    for shape in ((4096, 4096), (26, 4096)))
+    l1_packs.append({**_time_pack_l1(hdc_q, hdc_t, BITS, 0),
+                     "path": "hdc_isolet_d4096.bulk_k1"})
+    del hdc_q, hdc_t
+
+    # dense kernel: the L1 k = 300 path (its four queries), then the
+    # responses table at Q = 64
     dense = []
     for qb, n in paths["l1_k300"]["buckets"].items():
-        q8 = torch.zeros((qb, l1_q.shape[1]), dtype=torch.int8, device=dev)
-        q8[:min(qb, l1_q.shape[0])] = l1_q[:qb]
-        shape = _time_dense(q8, l1_t8, 2, n, err)
+        q8 = l1_batch(qb, 4)
+        shape = _time_dense(q8, l1_t8, levels, n, err, l1=True)
         if qb <= 16:
             shape.update(_tile_ms(lambda: kernel.cam_search(
-                q8, l1_t8, levels=2)))
+                q8, l1_t8, levels=levels, l1=True)))
         dense.append(shape)
     del l1_t8
     dense.append(_time_dense(batch(64), t8, levels, 0, err))
@@ -3669,23 +3743,25 @@ def phase_timing(run, err):
              "responses_k10", paths, fused, err),
         _row("cam_pack", "src/repro/kernels/cam_search/kernel.py:59",
              "responses_k10", paths, packs, err),
+        _row("cam_pack_l1", "src/repro/core/am.py:515 (plain JAX)",
+             "l1_k10", paths, l1_packs, err, keys=("device_ms",)),
     ]
     for r in rows:
         for s in r["shapes"]:
             tiles = "".join(f" {key}={s[key]:.4f}" for key in s
-                            if key.startswith("ms_tile"))
-            extra = "".join(f" {key}={s[key]}" for key in ("k", "path")
+                            if key.startswith("ms_tile")
+                            or key == "device_ms")
+            extra = "".join(f" {key}={s[key]}" for key in ("k", "bits",
+                                                           "path")
                             if key in s)
             print(f"  {r['name']}: Q={s['Q']} N={s['N']} D={s['D']}{extra} "
                   f"groups={s['groups']} ms={s['ms']:.4f} "
                   f"bound_ms={s['bound_ms']:.4f} "
                   f"plain_ms={s['plain_ms']:.2f}{tiles}")
     kernel_ms = sum(s["ms"] * s["groups"] for s in fused)
-    print(f"  int32->int8 table cast {cast_ms:.4f} ms per call; L1 "
-          f"thermometer expansion + cast {l1_expand_ms:.4f} ms per search; "
+    print(f"  int32->int8 table cast {cast_ms:.4f} ms per call; "
           f"fused kernel time of the main path {kernel_ms:.2f} ms")
-    return rows, {"table_cast_ms": cast_ms, "l1_expand_ms": l1_expand_ms,
-                  "main_path_kernel_ms": kernel_ms}
+    return rows, {"table_cast_ms": cast_ms, "main_path_kernel_ms": kernel_ms}
 
 
 def _fp32_bound(bytes_moved, ops):

@@ -40,8 +40,11 @@ and reduces the per-bank candidates by the all-gather, tree or ring merge
 
 Distance units: ``"hamming"`` counts differing symbols; ``"l1"`` is the
 level distance ``sum_d |q_d - t_d|``, realised for digital backends by
-thermometer expansion (:func:`thermometer`).  A distance is 0 iff the words
-are equal, and integer-exact, so threshold semantics are bit-precise.
+thermometer expansion (:func:`thermometer`; on a CUDA table the ``"cuda"``
+kernels pack the expansion's bit-planes from the codes in one launch, which
+takes codes as int8, as every symbol on the card: they agree with the
+expansion for codes in ``[-128, 128)``).  A distance is 0 iff the words are
+equal, and integer-exact, so threshold semantics are bit-precise.
 """
 
 from __future__ import annotations
@@ -417,6 +420,16 @@ def _expand_care_l1(care, bits, distance):
     return care
 
 
+def _l1_on_card(codes, bits, distance) -> bool:
+    """An L1 search of multi-bit codes in a CUDA table: the kernels' L1
+    pack makes the thermometer planes from the codes themselves, in one
+    launch (in the span ``cam.expand.l1``), in place of :func:`_expand_l1`
+    and :func:`_expand_care_l1`."""
+    from repro_torch.kernels.cam_search import kernel as cam_kernel
+    return (distance == "l1" and 1 < bits <= cam_kernel.L1_MAX_BITS
+            and codes.device.type == "cuda")
+
+
 def _ref_backend(queries, codes, bits, distance, care=None):
     from repro_torch.kernels.cam_search import ref as cam_ref
     care = _expand_care_l1(care, bits, distance)
@@ -426,9 +439,11 @@ def _ref_backend(queries, codes, bits, distance, care=None):
 
 def _cuda_backend(queries, codes, bits, distance, care=None):
     from repro_torch.kernels.cam_search import ops as cam_ops
-    care = _expand_care_l1(care, bits, distance)
-    queries, codes, bits = _expand_l1(queries, codes, bits, distance)
-    return cam_ops.mismatch_counts(queries, codes, bits, care=care)
+    l1 = _l1_on_card(codes, bits, distance)
+    if not l1:
+        care = _expand_care_l1(care, bits, distance)
+        queries, codes, bits = _expand_l1(queries, codes, bits, distance)
+    return cam_ops.mismatch_counts(queries, codes, bits, care=care, l1=l1)
 
 
 def _cuda_fused_backend(queries, codes, bits, distance, *, k, valid_rows,
@@ -436,11 +451,13 @@ def _cuda_fused_backend(queries, codes, bits, distance, *, k, valid_rows,
     # The L1 thermometer expansion widens D, never the row axis, so the
     # in-kernel valid_rows mask applies unchanged.
     from repro_torch.kernels.cam_search import ops as cam_ops
-    care = _expand_care_l1(care, bits, distance)
-    queries, codes, bits = _expand_l1(queries, codes, bits, distance)
+    l1 = _l1_on_card(codes, bits, distance)
+    if not l1:
+        care = _expand_care_l1(care, bits, distance)
+        queries, codes, bits = _expand_l1(queries, codes, bits, distance)
     return cam_ops.topk_fused(queries, codes, k=k, bits=bits,
                               valid_rows=valid_rows, care=care,
-                              count_le=count_le)
+                              count_le=count_le, l1=l1)
 
 
 def make_analog_backend(generator: torch.Generator | None = None,

@@ -24,7 +24,9 @@
 // and the unmasked count is D - matches.  At 3 bits that is four logic
 // instructions (merged into LOP3s), one popc and one add per 32 symbol
 // pairs, where the byte-wise compare of the first version of this kernel
-// took about 48 integer instructions and eight popc.
+// took about 48 integer instructions and eight popc.  An L1 search of
+// level codes packs their thermometer expansion at one bit instead,
+// straight from the codes (`cam_pack_l1_kernel`).
 //
 // What bounds it on this card: integer instruction issue, then the top-k
 // bookkeeping.  At the main path's shape (Q = 1,024 queries, N = 2^20
@@ -176,6 +178,106 @@ cam_pack_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
                      planes[4 * u + 3]);
   }
   if (with_care) cp[(size_t)row * GP + g] = cw;
+}
+
+// The L1 pack.  An L1 search of b-bit level codes compares their
+// thermometer expansions by Hamming distance: code c becomes M1 = 2^b - 1
+// one-bit symbols, rung r (1 <= r <= M1) set iff clamp(c, 0, M1) >= r, so
+// |a - c| is the number of rungs that differ.  `cam_pack_l1_kernel` writes
+// the P = 1 words of that expansion (zero-padded to DP, a multiple of 16
+// symbols) straight from the D-wide int8 codes, bit for bit what
+// `cam_pack_kernel` makes at levels = 2 of the expanded int8 matrix, and
+// with a care plane one word a group with every rung of a cared code set.
+//
+// Replaces, on the L1 path, the expansion into a (rows, D * M1) tensor
+// (an int64 compare, an int32 and an int8 copy) and `cam_pack` over it;
+// the TPU reference has no counterpart (its thermometer is plain JAX).
+// Bound: bytes, (Q + N) D codes [+ N D care] in, (Q + N) GP * 8 [+ N GP *
+// 4] out; at Q = 4,096, N = 26, D = 4,096, 3 bits 16.9 MB in and 29.5 MB
+// out, 0.014 ms at 3.35 TB/s.  How it meets it: a thread makes one group
+// (32 expanded symbols) and stores its two words in one 8-byte store; it
+// reads the ceil(32 / M1) + 1 codes the group touches once, as bytes that
+// its warp's neighbours share, and makes the rungs in registers: below 32
+// rungs a code, (1 << c) - 1 of each code into a 64-bit window that one
+// shift aligns; at 63 and 127 rungs, two codes at most, as two ranges.
+// `to_layout` then moves symbol s = 4i + j of the group to bit 8j + i.
+
+// x with its bits in the index-bit positions a < b swapped (bits whose
+// index has a set and b clear trade places with their partner d above).
+__device__ __forceinline__ uint32_t swap_index_bits(uint32_t x, uint32_t m,
+                                                    int d) {
+  const uint32_t t = ((x >> d) ^ x) & m;
+  return x ^ t ^ (t << d);
+}
+
+// Bit s = 4i + j of a group in symbol order -> bit 8j + i, the packed
+// layout: the index bits (j0 j1 i0 i1 i2) rotate to (i0 i1 i2 j0 j1), by
+// four swaps of index bits (0, 2), (1, 3), (2, 4) and (3, 4).
+__device__ __forceinline__ uint32_t to_layout(uint32_t x) {
+  x = swap_index_bits(x, 0x0A0A0A0Au, 3);
+  x = swap_index_bits(x, 0x00CC00CCu, 6);
+  x = swap_index_bits(x, 0x0000F0F0u, 12);
+  return swap_index_bits(x, 0x0000FF00u, 8);
+}
+
+__device__ __forceinline__ uint32_t low_bits(int n) {   // 0 <= n <= 32
+  return __funnelshift_lc(0xFFFFFFFFu, 0u, (unsigned)n);
+}
+
+// Thread i packs group i % GP of row i / GP of [queries; table], as
+// `cam_pack_kernel` does; codes are (rows, D) int8 with no alignment.
+template <int M1>
+__global__ void __launch_bounds__(PACK_THREADS)
+cam_pack_l1_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
+                   const int8_t* __restrict__ care, uint32_t* __restrict__ qp,
+                   uint32_t* __restrict__ tp, uint32_t* __restrict__ cp,
+                   int Q, int N, int D, int DP, int GP) {
+  const long long i = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (i >= (long long)(Q + N) * GP) return;
+  int row = (int)(i / GP);
+  const int g = (int)(i - (long long)row * GP);
+  const bool tab = row >= Q;
+  if (tab) row -= Q;
+  const int8_t* src = (tab ? t : q) + (size_t)row * D;
+  const int8_t* csrc = tab && care ? care + (size_t)row * D : nullptr;
+  const int base = 32 * g, d0 = base / M1, off = base - d0 * M1;
+  uint32_t lin = 0u, clin = 0u;     // bit s: expanded symbol base + s
+  if constexpr (M1 < 32) {
+    // codes d0 .. d0 + K - 1 hold rungs off .. off + 31 of the window
+    constexpr int K = (2 * M1 + 30) / M1;
+    uint64_t win = 0u, cwin = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (d0 + k < D) {
+        const int c = min(max((int)src[d0 + k], 0), M1);
+        win |= (uint64_t)((1u << c) - 1u) << (k * M1);
+        if (csrc && csrc[d0 + k])
+          cwin |= (uint64_t)((1u << M1) - 1u) << (k * M1);
+      }
+    }
+    lin = (uint32_t)(win >> off);
+    clin = (uint32_t)(cwin >> off);
+  } else {
+    // a group touches code d0 from rung off + 1 and, past its first s1
+    // symbols, code d0 + 1
+    const int s1 = M1 - off;
+    if (d0 < D) {
+      lin = low_bits(min(max(min((int)src[d0], M1) - off, 0), 32));
+      if (csrc && csrc[d0]) clin = low_bits(min(s1, 32));
+    }
+    if (s1 < 32 && d0 + 1 < D) {
+      lin |= low_bits(min(max((int)src[d0 + 1], 0), 32 - s1)) << s1;
+      if (csrc && csrc[d0 + 1]) clin |= 0xFFFFFFFFu << s1;
+    }
+  }
+  // DP and base are multiples of 16: the group is in range whole, by half
+  // (symbols 0-15: i < 4, bits 0-3 of each byte) or not at all
+  const int left = DP - base;
+  const uint32_t in_range =
+      left >= 32 ? 0xFFFFFFFFu : (left > 0 ? 0x0F0F0F0Fu : 0u);
+  uint32_t* dst = (tab ? tp : qp) + ((size_t)row * GP + g) * 2;
+  *reinterpret_cast<uint2*>(dst) = make_uint2(to_layout(lin), in_range);
+  if (csrc) cp[(size_t)row * GP + g] = to_layout(clin);
 }
 
 // Words [w0, w0 + CW) of rows [r0, r0 + R) of a packed (rows, RW) matrix
@@ -674,6 +776,19 @@ cudaError_t launch_pack(const int8_t* q, const int8_t* t, const int8_t* care,
   return cudaGetLastError();
 }
 
+template <int M1>
+cudaError_t launch_pack_l1(const int8_t* q, const int8_t* t,
+                           const int8_t* care, uint32_t* qp, uint32_t* tp,
+                           uint32_t* cp, int Q, int N, int D, int DP, int GP,
+                           cudaStream_t stream) {
+  const long long items = (long long)(Q + N) * GP;
+  const long long blocks = (items + PACK_THREADS - 1) / PACK_THREADS;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  cam_pack_l1_kernel<M1><<<(unsigned)blocks, PACK_THREADS, 0, stream>>>(
+      q, t, care, qp, tp, cp, Q, N, D, DP, GP);
+  return cudaGetLastError();
+}
+
 template <int P, int BQ, bool MASKED>
 cudaError_t launch_dense(const uint32_t* qp, const uint32_t* tp,
                          const uint32_t* cp, int32_t* out, int Q, int N,
@@ -806,6 +921,40 @@ extern "C" int cam_pack_launch(const void* q, const void* t, const void* care,
   return (int)launch_pack<P>(qs, ts, cs, qo, to, co, Q, N, D, gp, levels, s)
   REPRO_BY_P(REPRO_PACK)
 #undef REPRO_PACK
+}
+
+// (Q, D) queries and (N, D) table [and (N, D) care] int8 level codes of
+// `bits` bits (2 to 7) -> the packed words of their thermometer expansion
+// at one bit, (Q, gp, 2) and (N, gp, 2) [and (N, gp) care words], as
+// `cam_pack_launch` makes them at levels = 2 of the (rows, dp) expansion
+// zero-padded to dp = D (2^bits - 1) rounded up to 16.  `care` and `cp`
+// may be null; the codes need no alignment.
+extern "C" int cam_pack_l1_launch(const void* q, const void* t,
+                                  const void* care, void* qp, void* tp,
+                                  void* cp, int Q, int N, int D, int bits,
+                                  int gp, void* stream) {
+  if (Q < 1 || N < 1 || D < 1 || bits < 2 || bits > 7)
+    return (int)cudaErrorInvalidValue;
+  const long long dp = ((long long)D * ((1 << bits) - 1) + 15) / 16 * 16;
+  if (dp > 0x7FFFFFFFLL - 64 || (long long)gp * 32 < dp || gp % 2)
+    return (int)cudaErrorInvalidValue;
+  const auto* qs = static_cast<const int8_t*>(q);
+  const auto* ts = static_cast<const int8_t*>(t);
+  const auto* cs = static_cast<const int8_t*>(care);
+  auto* qo = static_cast<uint32_t*>(qp);
+  auto* to = static_cast<uint32_t*>(tp);
+  auto* co = care ? static_cast<uint32_t*>(cp) : nullptr;
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_PACK_L1(B)                                                     \
+  case B:                                                                    \
+    return (int)launch_pack_l1<(1 << B) - 1>(qs, ts, cs, qo, to, co, Q, N,   \
+                                             D, (int)dp, gp, s)
+  switch (bits) {
+    REPRO_PACK_L1(2); REPRO_PACK_L1(3); REPRO_PACK_L1(4);
+    REPRO_PACK_L1(5); REPRO_PACK_L1(6); REPRO_PACK_L1(7);
+  }
+#undef REPRO_PACK_L1
+  return (int)cudaErrorInvalidValue;
 }
 
 // Packed queries and table [and care words] -> (Q, N) int32 mismatches.

@@ -10,6 +10,10 @@
 * :func:`pack` runs the pack kernel both of them start with: queries,
   table and care plane to bit-planes (:func:`~repro_torch.kernels.
   cam_search.ref.pack_planes` is its plain version).
+* :func:`pack_l1` runs the L1 pack kernel in its place when they are
+  called with ``l1=True``: level codes straight to the one-bit planes of
+  their thermometer expansion (:func:`~repro_torch.kernels.cam_search.ref.
+  pack_planes_l1`), so that the search counts L1 distances.
 
 Symbols are int8.  Unmasked, a position matches iff ``q == t`` and
 ``0 <= q < levels``; masked, it is a mismatch iff ``care != 0`` and
@@ -20,15 +24,16 @@ The wrappers take CUDA tensors only and check device, dtype, shape,
 contiguity and alignment; they allocate outputs and the packed scratch with
 ``torch.empty``, launch on the current stream and raise if a launch returns
 a CUDA error.  Each counts its launches in :data:`launches`: a search call
-adds one to ``cam_pack`` and one to its own kernel (although the fused
-kernel runs as two passes).  The library is built and loaded at the first
-launch, never at import.
+adds one to ``cam_pack`` (``cam_pack_l1`` with ``l1``) and one to its own
+kernel (although the fused kernel runs as two passes).  The library is
+built and loaded at the first launch, never at import.
 
-While a profiler records (:mod:`repro_torch.obs`), the pack and the fused
-launch run in the spans ``cam.pack`` and ``cam.topk``, and one unmasked,
-uncounted fused search in ``obs.TRACE_EVERY`` runs the traced partial
-pass, which adds its votes, inserts and cycles to the ``cam_topk``
-counters; its outputs are the untraced pass's, bit for bit.
+While a profiler records (:mod:`repro_torch.obs`), the pack, the L1 pack
+and the fused launch run in the spans ``cam.pack``, ``cam.expand.l1`` and
+``cam.topk``, and one unmasked, uncounted fused search in
+``obs.TRACE_EVERY`` runs the traced partial pass, which adds its votes,
+inserts and cycles to the ``cam_topk`` counters; its outputs are the
+untraced pass's, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import torch
 from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LaunchCounts, check, raise_on, stream
-from repro_torch.kernels.cam_search.ref import plane_layout
+from repro_torch.kernels.cam_search.ref import (D_MULTIPLE, l1_width,
+                                                plane_layout)
 
 #: Largest ``k`` :func:`cam_search_topk` takes.
 MAX_K = 256
@@ -48,8 +54,8 @@ MAX_K = 256
 #: Table rows per tile of the kernels (``BN`` in the source).
 _BN = 128
 
-#: D must be a multiple of this (16-byte vector loads); the ops layer pads.
-D_MULTIPLE = 16
+#: Largest ``bits`` of the L1 pack: a code's 2^bits - 1 rungs fit int8.
+L1_MAX_BITS = 7
 
 #: Batches of at most this many queries take 16-query blocks, larger ones
 #: 64-query blocks (the source's two ``BQ`` instantiations).  0 sends every
@@ -57,7 +63,8 @@ D_MULTIPLE = 16
 SMALL_TILE_MAX_Q = 16
 
 #: Wrapper calls that launched their kernel, by kernel name.
-launches = LaunchCounts("cam_search", "cam_search_topk", "cam_pack")
+launches = LaunchCounts("cam_search", "cam_search_topk", "cam_pack",
+                        "cam_pack_l1")
 reset_launches = launches.reset
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -68,6 +75,8 @@ def _lib() -> ctypes.CDLL:
     if not hasattr(lib, "_repro_bound"):
         lib.cam_pack_launch.argtypes = [_VP] * 6 + [_I] * 6 + [_VP]
         lib.cam_pack_launch.restype = _I
+        lib.cam_pack_l1_launch.argtypes = [_VP] * 6 + [_I] * 5 + [_VP]
+        lib.cam_pack_l1_launch.restype = _I
         lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 6 + [_VP]
         lib.cam_search_launch.restype = _I
         lib.cam_search_topk_launch.argtypes = [_VP] * 11 + [_I] * 9 + [_VP]
@@ -80,7 +89,10 @@ def _check16(name, x, dtype, shape, device):
     check(name, x, dtype, shape, device, align=16)
 
 
-def _check_inputs(queries, table, care):
+def _check_inputs(queries, table, care, codes: bool = False):
+    """Symbols for :func:`pack`: 16-byte aligned, D a multiple of
+    :data:`D_MULTIPLE`; level ``codes`` for :func:`pack_l1`: any D, any
+    alignment."""
     if not isinstance(queries, torch.Tensor) or queries.device.type != "cuda":
         raise ValueError("queries must be a CUDA tensor")
     if queries.dim() != 2 or table.dim() != 2:
@@ -88,14 +100,15 @@ def _check_inputs(queries, table, care):
     qn, d = queries.shape
     n = table.shape[0]
     dev = queries.device
-    _check16("queries", queries, torch.int8, (qn, d), dev)
-    _check16("table", table, torch.int8, (n, d), dev)
+    align = 1 if codes else 16
+    check("queries", queries, torch.int8, (qn, d), dev, align)
+    check("table", table, torch.int8, (n, d), dev, align)
     if care is not None:
-        _check16("care", care, torch.int8, (n, d), dev)
+        check("care", care, torch.int8, (n, d), dev, align)
     if qn < 1 or n < 1:
         raise ValueError(f"need at least one query and one row, got Q={qn}, "
                          f"N={n}")
-    if d % D_MULTIPLE:
+    if not codes and d % D_MULTIPLE:
         raise ValueError(f"D={d} must be a multiple of {D_MULTIPLE}")
     return qn, n, d, dev
 
@@ -131,12 +144,59 @@ def pack(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
     return qp, tp, cp
 
 
-def cam_search(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
-               care: torch.Tensor | None = None) -> torch.Tensor:
-    """(Q, D) x (N, D) int8 [+ (N, D) int8 care] -> (Q, N) int32 mismatches."""
-    qn, n, d, dev = _check_inputs(queries, table, care)
-    qp, tp, cp = pack(queries, table, levels=levels, care=care)
+def pack_l1(queries: torch.Tensor, table: torch.Tensor, *, bits: int,
+            care: torch.Tensor | None = None):
+    """One launch of the L1 pack kernel: (Q, D) queries and (N, D) table
+    [and (N, D) care] int8 level codes -> ((Q, G, 2), (N, G, 2) [, (N, G)])
+    int32 words of their thermometer expansion at one bit, the layout of
+    ``ref.plane_layout(ref.l1_width(D, bits), 2)``: the words that
+    :func:`pack` makes at ``levels=2`` of the zero-padded expansion, bit
+    for bit (``ref.pack_planes_l1`` and ``ref.pack_care_l1``).  Each int8
+    code clamps to ``[0, 2^bits)``; ``2 <= bits <=`` :data:`L1_MAX_BITS`."""
+    qn, n, d, dev = _check_inputs(queries, table, care, codes=True)
+    if not 2 <= bits <= L1_MAX_BITS:
+        raise ValueError(f"bits={bits} outside [2, {L1_MAX_BITS}]")
+    _, words, groups = plane_layout(l1_width(d, bits), 2)
+    qp = torch.empty((qn, groups, words), dtype=torch.int32, device=dev)
+    tp = torch.empty((n, groups, words), dtype=torch.int32, device=dev)
+    cp = (None if care is None else
+          torch.empty((n, groups), dtype=torch.int32, device=dev))
+    with obs.span("cam.expand.l1"), torch.cuda.device(dev):
+        err = _lib().cam_pack_l1_launch(
+            queries.data_ptr(), table.data_ptr(), _ptr(care), qp.data_ptr(),
+            tp.data_ptr(), _ptr(cp), qn, n, d, bits, groups, stream(dev))
+    raise_on(err, "cam_pack_l1")
+    launches.add("cam_pack_l1")
+    return qp, tp, cp
+
+
+def _packed(queries, table, levels, care, l1):
+    """The pack a search starts with: (qp, tp, cp, d, planes, groups), d
+    the symbols the search counts over.  With ``l1`` the symbols are level
+    codes in ``[0, levels)``, ``levels = 2^bits``, packed by
+    :func:`pack_l1` and compared at one bit."""
+    if not l1:
+        qp, tp, cp = pack(queries, table, levels=levels, care=care)
+        d = queries.shape[1]
+    else:
+        bits = levels.bit_length() - 1
+        if levels != 1 << bits:
+            raise ValueError(f"levels={levels} of L1 codes must be 2^bits")
+        qp, tp, cp = pack_l1(queries, table, bits=bits, care=care)
+        d, levels = l1_width(queries.shape[1], bits), 2
     planes, _, groups = plane_layout(d, levels)
+    return qp, tp, cp, d, planes, groups
+
+
+def cam_search(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
+               care: torch.Tensor | None = None,
+               l1: bool = False) -> torch.Tensor:
+    """(Q, D) x (N, D) int8 [+ (N, D) int8 care] -> (Q, N) int32 mismatches.
+
+    With ``l1`` the symbols are level codes, ``levels = 2^bits``, and the
+    counts their L1 distances: :func:`pack_l1` packs them."""
+    qn, n, _, dev = _check_inputs(queries, table, care, codes=l1)
+    qp, tp, cp, d, planes, groups = _packed(queries, table, levels, care, l1)
     out = torch.empty((qn, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().cam_search_launch(
@@ -159,7 +219,7 @@ def _splits(q_tiles: int, n: int, dev: torch.device) -> tuple[int, int]:
 def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
                     valid_rows: torch.Tensor, *, levels: int, k: int,
                     care: torch.Tensor | None = None,
-                    count_le: torch.Tensor | None = None):
+                    count_le: torch.Tensor | None = None, l1: bool = False):
     """Streaming top-k: ((Q, k) int32 rows, (Q, k) float32 distances).
 
     ``valid_rows`` is a (1,) int32 CUDA tensor that the kernel reads itself
@@ -168,16 +228,16 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
     counts the rows at distance <= threshold.  ``1 <= k <= min(N, 256)``.
     While a profiler records, one unmasked search without ``count_le`` in
     ``obs.TRACE_EVERY`` adds to :mod:`repro_torch.obs`'s ``cam_topk``
-    counters.
+    counters.  ``l1``: level codes at L1 distance, as in
+    :func:`cam_search`.
     """
-    qn, n, d, dev = _check_inputs(queries, table, care)
+    qn, n, _, dev = _check_inputs(queries, table, care, codes=l1)
     _check16("valid_rows", valid_rows, torch.int32, (1,), dev)
     if count_le is not None:
         _check16("count_le", count_le, torch.float32, (qn, 1), dev)
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} outside [1, min(N={n}, {MAX_K})]")
-    qp, tp, cp = pack(queries, table, levels=levels, care=care)
-    planes, _, groups = plane_layout(d, levels)
+    qp, tp, cp, d, planes, groups = _packed(queries, table, levels, care, l1)
     bq = _tile(qn)
     splits, rows_per_split = _splits(-(-qn // bq), n, dev)
     part_keys = torch.empty((qn, splits, k), dtype=torch.int64, device=dev)

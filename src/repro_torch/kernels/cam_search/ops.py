@@ -11,6 +11,16 @@ ref`.  The two agree bitwise on symbols in ``[0, 2**bits)``; outside that
 range the kernels follow the one-hot rule (such a query symbol matches
 nothing) and the plain versions compare values.
 
+``l1=True`` (CUDA tables only, ``2 <= bits <= kernel.L1_MAX_BITS``) takes
+level codes and counts L1 distances: the int8 codes go unpadded to the
+kernels, whose L1 pack makes the one-bit planes of their thermometer
+expansion itself (:func:`~repro_torch.kernels.cam_search.kernel.pack_l1`).
+The counts equal those of the expanded codes (``repro_torch.core.am.
+thermometer``) searched at one bit, as a CPU table is, for codes in int8's
+range ``[-128, 128)``: the kernel clamps those to ``[0, 2**bits)`` as the
+thermometer does.  A code outside int8 wraps in the cast, as every symbol
+does (at 3 bits 256 reads as 0, where the thermometer saturates it to 7).
+
 Contracts (as in the reference): :func:`mismatch_counts` returns the exact
 integer number of differing symbol positions; results of the top-k helpers
 are ordered by ascending (distance, row index), the lowest row winning
@@ -52,9 +62,10 @@ def _int8_padded(x: torch.Tensor) -> torch.Tensor:
 
 
 def _int8(x: torch.Tensor, pad: bool) -> torch.Tensor:
-    """``x`` as int8, and for the kernels (``pad``) as :func:`_int8_padded`."""
+    """``x`` as int8, contiguous, and for the kernels' symbols (``pad``) as
+    :func:`_int8_padded`."""
     x = x.to(torch.int8)
-    return _int8_padded(x) if pad else x
+    return _int8_padded(x) if pad else x.contiguous()
 
 
 def _cast(queries, table, care, pad: bool):
@@ -67,18 +78,25 @@ def _cast(queries, table, care, pad: bool):
     return q, t, c
 
 
+def _check_l1(l1: bool, cuda: bool) -> None:
+    if l1 and not cuda:
+        raise ValueError("l1=True takes a CUDA table; expand the codes of a "
+                         "CPU table first (am.thermometer)")
+
+
 def mismatch_counts(queries: torch.Tensor, table: torch.Tensor,
-                    bits: int = 3, *,
-                    care: torch.Tensor | None = None) -> torch.Tensor:
+                    bits: int = 3, *, care: torch.Tensor | None = None,
+                    l1: bool = False) -> torch.Tensor:
     """(Q, D) queries vs (N, D) stored codes -> (Q, N) int32 mismatch counts.
 
     ``care`` is an optional (N, D) plane; positions with ``care == 0`` never
-    count as mismatches.
+    count as mismatches.  ``l1``: L1 distances of level codes (module doc).
     """
     cuda = _on_cuda(queries, table)
-    q, t, c = _cast(queries, table, care, cuda)
+    _check_l1(l1, cuda)
+    q, t, c = _cast(queries, table, care, cuda and not l1)
     if cuda:
-        return _k.cam_search(q, t, levels=1 << bits, care=c)
+        return _k.cam_search(q, t, levels=1 << bits, care=c, l1=l1)
     return _ref.mismatch_counts(q, t, c)
 
 
@@ -110,7 +128,8 @@ def topk(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
 
 def topk_fused(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
                bits: int = 3, valid_rows=None, *,
-               care: torch.Tensor | None = None, count_le=None):
+               care: torch.Tensor | None = None, count_le=None,
+               l1: bool = False):
     """Streaming top-k: ((Q, k) int32 rows, (Q, k) float32 distances).
 
     Bitwise the order of a stable ascending sort of the dense masked
@@ -118,10 +137,12 @@ def topk_fused(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
     it is clamped to N and, on the GPU, read by the kernel itself.  ``k``
     is clamped to the table size.  ``count_le`` — a scalar or (Q,) / (Q, 1)
     threshold — adds a third (Q,) int32 output, the number of live rows at
-    distance <= threshold.
+    distance <= threshold.  ``l1``: L1 distances of level codes (module
+    doc).
     """
     cuda = _on_cuda(queries, table)
-    q, t, c = _cast(queries, table, care, cuda)
+    _check_l1(l1, cuda)
+    q, t, c = _cast(queries, table, care, cuda and not l1)
     qn, tn = q.shape[0], t.shape[0]
     k = min(k, tn)
     dev = t.device
@@ -139,5 +160,5 @@ def topk_fused(queries: torch.Tensor, table: torch.Tensor, k: int = 1,
                         device=dev)
     if cuda:
         return _k.cam_search_topk(q, t, vr, levels=1 << bits, k=k, care=c,
-                                  count_le=thr)
+                                  count_le=thr, l1=l1)
     return _ref.topk(q, t, k, valid_rows=vr, care=c, count_le=thr)

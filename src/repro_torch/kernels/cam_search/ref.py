@@ -14,6 +14,7 @@ below count by the kernels' one-hot rule instead (:func:`onehot_counts`).
 
 The CUDA kernels compare bit-planes: :func:`plane_layout`,
 :func:`pack_planes` and :func:`pack_care` are the plain versions of their
+pack kernel, :func:`pack_planes_l1` and :func:`pack_care_l1` of the L1
 pack kernel, and :func:`plane_counts` counts on packed words as the search
 kernels do.
 """
@@ -21,6 +22,10 @@ kernels do.
 from __future__ import annotations
 
 import torch
+
+#: The kernels take D in multiples of this (16-byte vector loads); the ops
+#: layer zero-pads to it.
+D_MULTIPLE = 16
 
 #: Bound on the elements of one (Q, chunk, D) comparison block.
 _CHUNK_ELEMS = 1 << 26
@@ -155,6 +160,51 @@ def pack_care(care: torch.Tensor, levels: int) -> torch.Tensor:
     _, _, groups = plane_layout(care.shape[1], levels)
     c, real = _grouped(care.to(torch.int32), groups)
     return _words(real & (c != 0))
+
+
+def l1_width(d: int, bits: int) -> int:
+    """Symbols of the L1 planes of ``d`` level codes of ``bits`` bits: the
+    ``d (2^bits - 1)`` thermometer rungs, zero-padded to a multiple of
+    :data:`D_MULTIPLE` as the kernels take them."""
+    rungs = d * ((1 << bits) - 1)
+    return -(-rungs // D_MULTIPLE) * D_MULTIPLE
+
+
+def _rungs(x: torch.Tensor, bits: int):
+    """(rows, d) codes -> ((rows, groups, 32) int32 values of the expanded
+    symbols, (rows, groups, 32) bool: the symbol lies within the padded
+    width), for the L1 planes' layout.  Expanded symbol ``e`` is rung
+    ``e % (2^bits - 1) + 1`` of code ``e // (2^bits - 1)``."""
+    rows, d = x.shape
+    m1 = (1 << bits) - 1
+    width = l1_width(d, bits)
+    _, _, groups = plane_layout(width, 2)
+    e = torch.arange(groups * 32, device=x.device)
+    code, rung = e // m1, e % m1 + 1
+    inside = code < d
+    vals = x.to(torch.int32)[:, torch.where(inside, code, 0)]
+    vals = torch.where(inside, vals, 0)
+    real = (e < width).view(groups, 32).expand(rows, groups, 32)
+    return vals.view(rows, groups, 32), rung.view(groups, 32), real
+
+
+def pack_planes_l1(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(rows, d) int8 level codes -> (rows, groups, 2) int32 words of
+    their thermometer expansion at one bit, ``plane_layout(l1_width(d,
+    bits), 2)``: rung ``r`` of a code is set iff ``clamp(code, 0, 2^bits -
+    1) >= r``, and the in-range word covers the padded width, so these are
+    the words that :func:`pack_planes` makes at ``levels=2`` of the
+    zero-padded expansion.  Plain version of the L1 pack kernel."""
+    vals, rung, real = _rungs(codes, bits)
+    return torch.stack([_words(vals >= rung), _words(real)], dim=-1)
+
+
+def pack_care_l1(care: torch.Tensor, bits: int) -> torch.Tensor:
+    """(N, d) care plane -> (N, groups) int32 words of ``care != 0`` over
+    every rung of a code, in :func:`pack_planes_l1`'s layout; the padding
+    is never cared for (past the codes, ``_rungs`` reads 0)."""
+    vals, _, _ = _rungs(care, bits)
+    return _words(vals != 0)
 
 
 def plane_counts(qp: torch.Tensor, tp: torch.Tensor,

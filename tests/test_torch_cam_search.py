@@ -142,8 +142,10 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.cam_search_topk(q, t, torch.tensor([4], dtype=torch.int32),
                                 levels=8, k=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.pack_l1(q[:, :5], t[:, :5], bits=3)
     assert tkernel.launches == {"cam_search": 0, "cam_search_topk": 0,
-                                "cam_pack": 0}
+                                "cam_pack": 0, "cam_pack_l1": 0}
 
 
 def _out_of_range_case(seed, bits, qn, n, d, care=False):
@@ -223,3 +225,50 @@ def test_plane_layout_and_bit_order():
     x[0, 31] = 9                             # out of range at levels 8
     w = [int(v) & 0xFFFFFFFF for v in tref.pack_planes(x, 8)[0, 0]]
     assert w == [1 << 21 | 1 << 31, 1 << 21, 0, 0x7FFFFFFF]
+
+
+def _l1_chain(codes, bits, care=False):
+    """What an L1 search packed before the L1 pack kernel: the thermometer
+    expansion (``am.thermometer``, its care plane repeated over the rungs),
+    cast to int8 and zero-padded by ``ops``, then packed at ``levels=2``."""
+    from repro_torch.core import am
+    if care:
+        wide = torch.repeat_interleave(codes, (1 << bits) - 1, dim=-1)
+        return tref.pack_care(tops._int8_padded(wide), 2)
+    return tref.pack_planes(tops._int8_padded(am.thermometer(codes, bits)),
+                            2)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("d", [1, 5, 16, 37, 4096])
+@pytest.mark.parametrize("care", [False, True])
+def test_pack_planes_l1_is_the_expansion_packed(bits, d, care):
+    """The L1 pack's plain version: its words are those of the old chain,
+    bit for bit, in-range word and zero padding included (D (2^bits - 1)
+    rarely a multiple of 16 or 32), on odd Q and N, with codes over all of
+    int8, so out-of-range codes saturate as ``am.thermometer`` does."""
+    rng = np.random.default_rng(bits * 10_000 + d)
+    q = torch.from_numpy(rng.integers(-128, 128, (3, d)).astype(np.int32))
+    t = torch.from_numpy(rng.integers(-128, 128, (5, d)).astype(np.int32))
+    t[1:3] = torch.from_numpy(rng.integers(0, 1 << bits, (2, d)))
+    for x in (q, t):
+        got = tref.pack_planes_l1(x.to(torch.int8), bits)
+        assert got.shape == (x.shape[0], tref.plane_layout(
+            tref.l1_width(d, bits), 2)[2], 2)
+        assert torch.equal(got, _l1_chain(x, bits))
+    if care:
+        c = torch.from_numpy((rng.random((5, d)) > 0.4).astype(np.int32))
+        assert torch.equal(tref.pack_care_l1(c.to(torch.int8), bits),
+                           _l1_chain(c, bits, care=True))
+
+
+def test_l1_codes_take_a_cuda_table():
+    """``l1=True`` in ``ops`` is the kernels' path: a CPU table is refused
+    by name, and ``am`` expands a CPU table's codes itself."""
+    q = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA table"):
+        tops.mismatch_counts(q, q, 3, l1=True)
+    with pytest.raises(ValueError, match="CUDA table"):
+        tops.topk_fused(q, q, k=1, bits=3, l1=True)
+    assert tref.l1_width(5, 3) == 48 and tref.l1_width(16, 2) == 48
+    assert tref.l1_width(4096, 3) == 28_672

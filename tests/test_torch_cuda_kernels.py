@@ -129,7 +129,127 @@ def test_kernels_follow_the_onehot_rule(dev, monkeypatch, small_tile_max_q,
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert kernel.launches == {"cam_search": 1, "cam_search_topk": 1,
-                               "cam_pack": 3}
+                               "cam_pack": 3, "cam_pack_l1": 0}
+
+
+def _unaligned(x):
+    """``x`` as int8 in a buffer one byte past an aligned address."""
+    buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("d", [1, 5, 16, 37, 4096])
+@pytest.mark.parametrize("care", [False, True])
+def test_pack_l1_against_the_expansion_chain(dev, bits, d, care):
+    """The L1 pack kernel's words and care words against what the L1 path
+    packed before it, bit for bit: ``am.thermometer``, ``ops``' int8 cast
+    and zero padding, then ``cam_pack`` at levels 2 on the card; and
+    against the plain ``ref.pack_planes_l1``.  Codes over all of int8 (out
+    of range saturates), odd Q and N, codes at an odd address."""
+    rng = np.random.default_rng(bits * 10_000 + d)
+    q = torch.from_numpy(rng.integers(-128, 128, (3, d))).to(dev)
+    t = torch.from_numpy(rng.integers(-128, 128, (5, d))).to(dev)
+    t[1:3] = torch.from_numpy(rng.integers(0, 1 << bits, (2, d))).to(dev)
+    c = (torch.from_numpy((rng.random((5, d)) > 0.4).astype(np.int32))
+         .to(dev) if care else None)
+    kernel.reset_launches()
+    q8, t8 = q.to(torch.int8), _unaligned(t)
+    c8 = None if c is None else _unaligned(c)
+    qp, tp, cp = kernel.pack_l1(q8, t8, bits=bits, care=c8)
+    assert kernel.launches["cam_pack_l1"] == 1
+    wide = [ops._int8_padded(am.thermometer(x, bits)) for x in (q, t)]
+    wc = (None if c is None else ops._int8_padded(
+        torch.repeat_interleave(c, (1 << bits) - 1, dim=-1)))
+    want = kernel.pack(wide[0], wide[1], levels=2, care=wc)
+    assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,
+                               "cam_pack": 1, "cam_pack_l1": 1}
+    assert torch.equal(qp, want[0]) and torch.equal(tp, want[1])
+    assert torch.equal(qp, ref.pack_planes_l1(q8, bits))
+    assert torch.equal(tp, ref.pack_planes_l1(t8, bits))
+    if care:
+        assert torch.equal(cp, want[2])
+        assert torch.equal(cp, ref.pack_care_l1(c8, bits))
+    else:
+        assert cp is None
+
+
+@pytest.mark.parametrize("bits,n,d", [(3, 3001, 64), (2, 700, 37),
+                                      (4, 129, 333), (7, 300, 9)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_l1_search_on_the_card_matches_ref(dev, bits, n, d, masked):
+    """``am.search`` (fused tier, and the dense one past k = 256, with and
+    without a threshold count) and ``am.distances`` on L1 tables on the
+    card against the ``ref`` backend: the same rows and distances.  Each
+    search is one ``cam_pack_l1`` launch and no ``cam_pack``; a Hamming
+    search launches no ``cam_pack_l1``."""
+    rng = np.random.default_rng(bits + n + d)
+    codes = rng.integers(0, 1 << bits, (n, d)).astype(np.int32)
+    codes[7::11] = codes[2]                           # ties
+    queries = np.concatenate([codes[rng.integers(0, n, 21)],
+                              rng.integers(0, 1 << bits, (12, d))])
+    care = (rng.random((n, d)) > 0.25).astype(np.int32) if masked else None
+    gpu = am.make_table(codes, bits=bits, distance="l1", care_mask=care)
+    cpu = am.make_table(codes, bits=bits, distance="l1", care_mask=care,
+                        device="cpu")
+    calls = [dict(k=1), dict(k=10, valid_rows=n - 5), dict(k=300),
+             dict(matches=6, threshold=float(d // 2))]
+    for kw in calls:
+        kernel.reset_launches()
+        a = am.search(gpu, queries, backend="cuda", **kw)
+        tier = "cam_search" if min(kw.get("k", 1), n) > am.FUSED_K_MAX \
+            else "cam_search_topk"
+        want = {"cam_search": 0, "cam_search_topk": 0, "cam_pack": 0,
+                "cam_pack_l1": 1}
+        want[tier] = 1
+        assert kernel.launches == want, (kw, kernel.launches)
+        b = am.search(cpu, queries, backend="ref", **kw)
+        for f in dataclasses.fields(b):
+            assert torch.equal(getattr(a, f.name).cpu(),
+                               getattr(b, f.name)), (kw, f.name)
+    kernel.reset_launches()
+    dist = am.distances(gpu, queries, backend="cuda")
+    assert kernel.launches["cam_pack_l1"] == 1
+    assert torch.equal(dist.cpu(), am.distances(cpu, queries, backend="ref"))
+    hamming = am.make_table(codes, bits=bits, care_mask=care)
+    kernel.reset_launches()
+    am.search(hamming, queries, k=3, backend="cuda")
+    assert kernel.launches["cam_pack_l1"] == 0
+    assert kernel.launches["cam_pack"] == 1
+
+
+@pytest.mark.parametrize("bits", [2, 3, 7])
+def test_l1_codes_past_their_levels_on_the_card(dev, bits):
+    """L1 codes outside ``[0, 2^bits)``: within int8 (-128, -1, and below
+    7 bits 2^bits and 127) the card clamps them as the ``ref`` backend's
+    thermometer does, in the fused and the dense tier; outside int8 (200,
+    256, -200; at 7 bits 2^bits = 128 too) they wrap in the int8 cast, as
+    every symbol on the card does, so the card answers as the ``ref``
+    backend does for their int8 values."""
+    rng = np.random.default_rng(bits)
+    n, d = 500, 40
+    odd = np.array([-128, -1] + ([1 << bits, 127] if bits < 7 else []))
+    codes = rng.integers(0, 1 << bits, (n, d))
+    mask = rng.random((n, d)) < 0.2
+    codes[mask] = rng.choice(odd, int(mask.sum()))
+    queries = codes[rng.integers(0, n, 17)].copy()
+    qmask = rng.random(queries.shape) < 0.3
+    queries[qmask] = rng.choice(odd, int(qmask.sum()))
+    gpu = am.make_table(codes, bits=bits, distance="l1")
+    cpu = am.make_table(codes, bits=bits, distance="l1", device="cpu")
+    for kw in (dict(k=5), dict(k=300)):
+        a = am.search(gpu, queries, backend="cuda", **kw)
+        b = am.search(cpu, queries, backend="ref", **kw)
+        assert torch.equal(a.indices.cpu(), b.indices), kw
+        assert torch.equal(a.distances.cpu(), b.distances), kw
+    wide = queries.copy()
+    wide[:, :3] = [200, 256, -200]
+    wrapped = torch.from_numpy(wide).to(torch.int8).to(torch.int32)
+    assert wrapped[0, :3].tolist() == [-56, 0, 56]
+    a = am.distances(gpu, wide, backend="cuda")
+    assert torch.equal(a.cpu(), am.distances(cpu, wrapped, backend="ref"))
 
 
 def test_search_on_the_card_matches_the_cpu(dev):
@@ -290,9 +410,11 @@ def test_ivf_on_the_card_matches_the_cpu(dev, k, distance):
         sets = np.unique(a.probed_sets.cpu().numpy())
         fine = int((sizes[sets] > 0).sum())
         tier = "cam_search_topk" if k <= am.FUSED_K_MAX else "cam_search"
+        pack = "cam_pack_l1" if distance == "l1" else "cam_pack"
         want = {"cam_search": 1 + (fine if tier == "cam_search" else 0),
                 "cam_search_topk": fine if tier == "cam_search_topk" else 0,
-                "cam_pack": 1 + fine}
+                "cam_pack": 0, "cam_pack_l1": 0}
+        want[pack] = 1 + fine
         assert kernel.launches == want, (kernel.launches, want)
 
 
@@ -323,8 +445,10 @@ def test_sharded_search_on_the_card_matches_the_cpu(dev, merge, n, k,
     banks = min(8, -(-n // -(-n // 8)))
     tier = "cam_search_topk" if min(k, -(-n // 8)) <= am.FUSED_K_MAX \
         else "cam_search"
-    want = {"cam_search": 0, "cam_search_topk": 0, "cam_pack": banks}
-    want[tier] = banks
+    pack = "cam_pack_l1" if distance == "l1" else "cam_pack"
+    want = {"cam_search": 0, "cam_search_topk": 0, "cam_pack": 0,
+            "cam_pack_l1": 0}
+    want[pack] = want[tier] = banks
     assert kernel.launches == want, (kernel.launches, want)
     b = am.search_sharded(cpu, queries, mesh=mesh, k=k, backend="cuda",
                           valid_rows=valid_rows, merge=merge)
@@ -351,7 +475,7 @@ def test_lpm_lookup_on_the_card_matches_the_cpu(dev):
         for f in ("indices", "distances", "match_count", "overflow"):
             assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), f
         assert kernel.launches == {"cam_search": 0, "cam_search_topk": 1,
-                                   "cam_pack": 1}
+                                   "cam_pack": 1, "cam_pack_l1": 0}
     for a in addrs[:20].tolist():
         assert int(ha[addrs.tolist().index(a)]) == tcam.lpm_oracle(
             routes, a, width=16, bits=2)

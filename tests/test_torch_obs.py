@@ -7,7 +7,8 @@ stay zero.
 The launches traced, one in ``obs.TRACE_EVERY``, and the counters scaled
 to all of them.  Marked ``cuda`` (skipped without a card; run on the card
 with ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
-tests/test_torch_obs.py``): the kernel path's spans, and the traced partial
+tests/test_torch_obs.py``): the kernel path's spans, the L1 pack placed
+under ``cam.expand.l1``, and the traced partial
 pass of the fused top-k at the bulk cells' shape, bitwise the untraced
 pass, with exact vote counts.
 """
@@ -213,8 +214,52 @@ def test_card_hdc_classify_spans(dev, tmp_path):
         torch.cuda.synchronize()
     spans = _annotations(prof, tmp_path)
     assert _inside(spans, "hdc.encode", "hdc.classify")
-    for child in ("cam.expand.l1", "cam.pack", "cam.topk"):
+    for child in ("cam.expand.l1", "cam.topk"):
         assert _inside(spans, child, "am.search"), child
+    assert "cam.pack" not in spans          # the L1 pack runs in its place
+
+
+def _kernels_by_span(prof, tmp_path):
+    """kernel name -> names of the spans that hold, on the same thread,
+    the runtime or driver call that launched it (matched by
+    ``correlation``), from the profile's exported Chrome trace."""
+    path = tmp_path / "device_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        call = calls[e["args"]["correlation"]]
+        out.setdefault(e["name"], set()).update(
+            s["name"] for s in spans if s["tid"] == call["tid"]
+            and s["ts"] <= call["ts"] <= s["ts"] + s["dur"])
+    return out
+
+
+@pytest.mark.cuda
+def test_card_l1_pack_runs_in_the_expand_span(dev, tmp_path):
+    """An L1 search's pack is one ``cam_pack_l1_kernel`` launched inside
+    ``cam.expand.l1`` (what ``l1_expand_span_pct`` reads), and nothing is
+    launched inside ``cam.pack``."""
+    codes = _codes(300, 4096)
+    table = am.make_table(codes, bits=3, distance="l1", device=dev)
+    am.search(table, codes[:8], k=1, backend="cuda")       # load the library
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        am.search(table, codes[:64], k=1, backend="cuda")
+        torch.cuda.synchronize()
+    placed = _kernels_by_span(prof, tmp_path)
+    packs = [name for name in placed if "cam_pack_l1_kernel" in name]
+    assert len(packs) == 1, sorted(placed)
+    assert {"cam.expand.l1", "am.search"} <= placed[packs[0]]
+    assert all("cam.pack" not in where for where in placed.values())
+    assert not any("cam_pack_kernel" in name for name in placed)
 
 
 #: The bulk cells' shape: a batch of 1,024 lookups of 128 3-bit symbols
