@@ -1028,7 +1028,8 @@ def _ivf_group_split(index, queries, qb):
     t1 = time.perf_counter()
     coarse = read_launches()
     reset_launches()
-    dist, gid = ivf._fine_candidates(be, q, index, probed, K)
+    dist, gid = ivf._fine_candidates(be, q, index, probed,
+                                     min(K, index.set_capacity))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     fine = read_launches()
@@ -1438,7 +1439,7 @@ def _sharded_k10(run):
     be = am._resolve_backend("cuda")
     local_n = -(-table.n_rows // SHARD_BANKS)
     parts = [am._bank_candidates(be, table, q, b * local_n, local_n, K,
-                                 ROWS, True, None)
+                                 ROWS, None)
              for b in range(SHARD_BANKS)]
     cand = (torch.stack([p[0] for p in parts]),
             torch.stack([p[1] for p in parts]))

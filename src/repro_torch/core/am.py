@@ -287,16 +287,11 @@ FUSED_K_MAX = 256
 _fused_fallback_count = 0
 
 
-def _note_fused_fallback() -> None:
-    global _fused_fallback_count
-    _fused_fallback_count += 1
-
-
 def fused_fallbacks() -> int:
     """How often a fused-capable backend fell back to the dense tier.
 
-    Counts calls of :func:`search` where the backend has a fused tier but
-    ``k`` (or ``matches``) exceeds :data:`FUSED_K_MAX`.  PyTorch runs
+    Counts calls of :func:`search`, :func:`search_sharded` and the index
+    tier's searches where :func:`_fused_tier` says so.  PyTorch runs
     eagerly, so this ticks once per such call.
     """
     return _fused_fallback_count
@@ -393,6 +388,29 @@ def _resolve_backend(backend: str | BackendFn | None) -> _Backend:
     return _get_entry(backend)
 
 
+def _fused_tier(be: _Backend, window: int, multi: bool) -> tuple[bool, bool]:
+    """The tier rule: ``(fused, fallback)`` for a candidate search whose
+    k (or match window, ``multi``) is ``window``, clamped to the rows it
+    scans.  A dense run on a fused-capable backend is a fallback."""
+    fusable = be.fused is not None and (not multi or be.fused_count)
+    return (fusable and 1 <= window <= FUSED_K_MAX,
+            fusable and window > FUSED_K_MAX)
+
+
+def _note_fallback(be: _Backend, window: int, multi: bool) -> None:
+    """Tick :func:`fused_fallbacks` where :func:`_fused_tier` says so."""
+    global _fused_fallback_count
+    if _fused_tier(be, window, multi)[1]:
+        _fused_fallback_count += 1
+
+
+def dense_fallback(backend: str | BackendFn | None, window: int, *,
+                   multi: bool = False) -> bool:
+    """Whether a candidate search of ``window`` rows (:func:`_fused_tier`)
+    falls back to the dense tier: what :func:`fused_fallbacks` counts."""
+    return _fused_tier(_resolve_backend(backend), window, multi)[1]
+
+
 def thermometer(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """(..., D) levels in [0, 2^b) -> (..., D*(2^b-1)) binary thermometer.
 
@@ -404,57 +422,49 @@ def thermometer(codes: torch.Tensor, bits: int) -> torch.Tensor:
     return out.reshape(*codes.shape[:-1], codes.shape[-1] * (m - 1))
 
 
-def _expand_l1(queries, codes, bits, distance):
-    """Apply the thermometer trick for digital backends in L1 mode (in the
-    span ``cam.expand.l1`` while a profiler records)."""
-    if distance == "l1" and bits > 1:
-        with obs.span("cam.expand.l1"):
-            return thermometer(queries, bits), thermometer(codes, bits), 1
-    return queries, codes, bits
+def _expand_l1(queries, codes, care, bits, distance):
+    """The thermometer trick for digital backends in L1 mode (the codes in
+    the span ``cam.expand.l1`` while a profiler records, the care plane
+    widened to match): ``(queries, codes, care, bits)``."""
+    if distance != "l1" or bits <= 1:
+        return queries, codes, care, bits
+    if care is not None:
+        care = torch.repeat_interleave(care, (1 << bits) - 1, dim=-1)
+    with obs.span("cam.expand.l1"):
+        return thermometer(queries, bits), thermometer(codes, bits), care, 1
 
 
-def _expand_care_l1(care, bits, distance):
-    """Widen a care plane to match :func:`_expand_l1`'s thermometer codes."""
-    if care is not None and distance == "l1" and bits > 1:
-        return torch.repeat_interleave(care, (1 << bits) - 1, dim=-1)
-    return care
+def _cuda_operands(queries, codes, care, bits, distance):
+    """The ``"cuda"`` ops' operands ``(queries, codes, care, bits, l1)``.
 
-
-def _l1_on_card(codes, bits, distance) -> bool:
-    """An L1 search of multi-bit codes in a CUDA table: the kernels' L1
-    pack makes the thermometer planes from the codes themselves, in one
-    launch (in the span ``cam.expand.l1``), in place of :func:`_expand_l1`
-    and :func:`_expand_care_l1`."""
+    On the card an L1 search of multi-bit codes keeps its level codes for
+    the kernels' L1 pack (``l1``); any other takes :func:`_expand_l1`'s,
+    which widen D, never the rows, so ``valid_rows`` holds unchanged."""
     from repro_torch.kernels.cam_search import kernel as cam_kernel
-    return (distance == "l1" and 1 < bits <= cam_kernel.L1_MAX_BITS
-            and codes.device.type == "cuda")
+    if (distance == "l1" and 1 < bits <= cam_kernel.L1_MAX_BITS
+            and codes.device.type == "cuda"):
+        return queries, codes, care, bits, True
+    return (*_expand_l1(queries, codes, care, bits, distance), False)
 
 
 def _ref_backend(queries, codes, bits, distance, care=None):
     from repro_torch.kernels.cam_search import ref as cam_ref
-    care = _expand_care_l1(care, bits, distance)
-    queries, codes, bits = _expand_l1(queries, codes, bits, distance)
+    queries, codes, care, _ = _expand_l1(queries, codes, care, bits, distance)
     return cam_ref.mismatch_counts(queries, codes, care)
 
 
 def _cuda_backend(queries, codes, bits, distance, care=None):
     from repro_torch.kernels.cam_search import ops as cam_ops
-    l1 = _l1_on_card(codes, bits, distance)
-    if not l1:
-        care = _expand_care_l1(care, bits, distance)
-        queries, codes, bits = _expand_l1(queries, codes, bits, distance)
+    queries, codes, care, bits, l1 = _cuda_operands(queries, codes, care,
+                                                    bits, distance)
     return cam_ops.mismatch_counts(queries, codes, bits, care=care, l1=l1)
 
 
 def _cuda_fused_backend(queries, codes, bits, distance, *, k, valid_rows,
                         care=None, count_le=None):
-    # The L1 thermometer expansion widens D, never the row axis, so the
-    # in-kernel valid_rows mask applies unchanged.
     from repro_torch.kernels.cam_search import ops as cam_ops
-    l1 = _l1_on_card(codes, bits, distance)
-    if not l1:
-        care = _expand_care_l1(care, bits, distance)
-        queries, codes, bits = _expand_l1(queries, codes, bits, distance)
+    queries, codes, care, bits, l1 = _cuda_operands(queries, codes, care,
+                                                    bits, distance)
     return cam_ops.topk_fused(queries, codes, k=k, bits=bits,
                               valid_rows=valid_rows, care=care,
                               count_le=count_le, l1=l1)
@@ -703,6 +713,26 @@ def _sorted_topk(d: torch.Tensor, k: int):
     return idx[:, :k].to(torch.int32), vals[:, :k]
 
 
+def _candidates(be: _Backend, queries, codes, bits, distance, *, k: int,
+                valid_rows, care=None, count_le=None):
+    """The first ``k`` rows of ``codes`` per query by (distance, row), on
+    :func:`_fused_tier`'s tier (a multi-match with ``count_le``): (Q,
+    min(k, N)) int32 rows, float32 distances, and the (Q,) int32 count of
+    live rows at distance <= ``count_le`` or None."""
+    ckw = {} if care is None else {"care": care}
+    if _fused_tier(be, k, count_le is not None)[0]:
+        if count_le is None:
+            return (*be.fused(queries, codes, bits, distance, k=k,
+                              valid_rows=valid_rows, **ckw), None)
+        return be.fused(queries, codes, bits, distance, k=k,
+                        valid_rows=valid_rows, count_le=count_le, **ckw)
+    d = be.dense(queries, codes, bits, distance, **ckw).to(torch.float32)
+    d = _mask_rows(d, valid_rows)
+    count = (None if count_le is None
+             else (d <= count_le).sum(dim=1, dtype=torch.int32))
+    return (*_sorted_topk(d, k), count)
+
+
 def distances(table: AMTable, queries, *,
               backend: str | BackendFn | None = None) -> torch.Tensor:
     """Full (Q, N) distance matrix (backend-native dtype, contract units).
@@ -714,6 +744,19 @@ def distances(table: AMTable, queries, *,
     d = be.dense(queries, table.codes, table.bits, table.distance,
                  **_care_kwargs(table, be))
     return d[0] if squeeze else d
+
+
+def _check_window(k: int, matches: int | None) -> None:
+    """Reject a bad ``k`` / ``matches`` pair, as :func:`search` documents."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if matches is not None:
+        if k != 1:
+            raise ValueError(
+                f"pass either k= or matches=, not both (k={k}, "
+                f"matches={matches})")
+        if matches < 1:
+            raise ValueError(f"matches must be >= 1, got {matches}")
 
 
 def search(table: AMTable, queries, *, k: int = 1, threshold=None,
@@ -750,51 +793,22 @@ def search(table: AMTable, queries, *, k: int = 1, threshold=None,
     its query preparation in ``am.search.prep`` (:mod:`repro_torch.obs`).
     """
     with obs.span("am.search"):
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        if matches is not None:
-            if k != 1:
-                raise ValueError(
-                    f"pass either k= or matches=, not both (k={k}, "
-                    f"matches={matches})")
-            if matches < 1:
-                raise ValueError(f"matches must be >= 1, got {matches}")
+        _check_window(k, matches)
         queries, squeeze = _prep_queries(table, queries)
         be = _resolve_backend(backend)
         ckw = _care_kwargs(table, be)
-
-        if matches is not None:
-            m_eff = min(matches, table.n_rows)
-            thr_q = _match_threshold(threshold, queries.shape[0], table.device)
-            if (be.fused is not None and be.fused_count
-                    and 1 <= m_eff <= FUSED_K_MAX):
-                idx, dist, count = be.fused(
-                    queries, table.codes, table.bits, table.distance, k=m_eff,
-                    valid_rows=valid_rows, count_le=thr_q, **ckw)
-            else:
-                if be.fused is not None and be.fused_count \
-                        and m_eff > FUSED_K_MAX:
-                    _note_fused_fallback()
-                d = be.dense(queries, table.codes, table.bits, table.distance,
-                             **ckw).to(torch.float32)
-                d = _mask_rows(d, valid_rows)
-                count = (d <= thr_q).sum(dim=1, dtype=torch.int32)
-                idx, dist = _sorted_topk(d, m_eff)
-            dist, idx = _pad_candidates(dist, idx, matches)
-            return _finalize_matches(idx, dist, count, thr_q, matches, squeeze)
-
-        k = min(k, table.n_rows)
-        if be.fused is not None and 1 <= k <= FUSED_K_MAX:
-            idx, dist = be.fused(queries, table.codes, table.bits,
-                                 table.distance, k=k, valid_rows=valid_rows,
-                                 **ckw)
+        multi = matches is not None
+        window = min(matches if multi else k, table.n_rows)
+        thr_q = (_match_threshold(threshold, queries.shape[0], table.device)
+                 if multi else None)
+        _note_fallback(be, window, multi)
+        idx, dist, count = _candidates(
+            be, queries, table.codes, table.bits, table.distance, k=window,
+            valid_rows=valid_rows, count_le=thr_q, **ckw)
+        if not multi:
             return _finalize(idx, dist, threshold, squeeze)
-        if be.fused is not None and k > FUSED_K_MAX:
-            _note_fused_fallback()
-        d = be.dense(queries, table.codes, table.bits, table.distance, **ckw)
-        d = _mask_rows(d.to(torch.float32), valid_rows)
-        idx, dist = _sorted_topk(d, k)
-        return _finalize(idx, dist, threshold, squeeze)
+        dist, idx = _pad_candidates(dist, idx, matches)
+        return _finalize_matches(idx, dist, count, thr_q, matches, squeeze)
 
 
 # ---------------------------------------------------------------------------
@@ -964,7 +978,7 @@ def merge_traffic_bytes(n_banks: int, q: int, k: int, *, merge: str = "auto",
 
 def _bank_candidates(be: _Backend, table: AMTable, queries: torch.Tensor,
                      lo: int, local_n: int, k_local: int, valid_rows,
-                     use_fused: bool, thr: torch.Tensor | None):
+                     thr: torch.Tensor | None):
     """One bank's (Q, k_local) candidates and, with ``thr``, its count.
 
     The bank holds rows ``[lo, lo + local_n)`` of the table, as a view;
@@ -977,36 +991,22 @@ def _bank_candidates(be: _Backend, table: AMTable, queries: torch.Tensor,
     n = table.n_rows
     rows = max(min(lo + local_n, n) - lo, 0)
     qn, dev = queries.shape[0], queries.device
-    count = (None if thr is None
-             else torch.zeros((qn,), dtype=torch.int32, device=dev))
     if rows == 0:
+        count = (None if thr is None
+                 else torch.zeros((qn,), dtype=torch.int32, device=dev))
         return (torch.full((qn, k_local), torch.inf, device=dev),
                 torch.full((qn, k_local), _IDX_SENTINEL, dtype=torch.int32,
                            device=dev), count)
-    codes = table.codes[lo:lo + rows]
-    ckw = {} if table.care is None else {"care": table.care[lo:lo + rows]}
     vr = n if valid_rows is None else valid_rows
     if isinstance(vr, torch.Tensor):
         vr_local = (vr.to(dev).reshape(()) - lo).clamp(0, rows)
     else:
         vr_local = min(max(int(vr) - lo, 0), rows)
-    if use_fused:
-        if thr is None:
-            il, dl = be.fused(queries, codes, table.bits, table.distance,
-                              k=k_local, valid_rows=vr_local, **ckw)
-        else:
-            il, dl, count = be.fused(queries, codes, table.bits,
-                                     table.distance, k=k_local,
-                                     valid_rows=vr_local, count_le=thr,
-                                     **ckw)
-    else:
-        d = be.dense(queries, codes, table.bits, table.distance,
-                     **ckw).to(torch.float32)
-        d = _mask_rows(d, vr_local)
-        if thr is not None:
-            count = (d <= thr).sum(dim=1, dtype=torch.int32)
-        il, dl = _sorted_topk(d, k_local)
-    dl, gi = _pad_candidates(dl, il.to(torch.int32) + lo, k_local)
+    il, dl, count = _candidates(
+        be, queries, table.codes[lo:lo + rows], table.bits, table.distance,
+        k=k_local, valid_rows=vr_local, count_le=thr,
+        care=None if table.care is None else table.care[lo:lo + rows])
+    dl, gi = _pad_candidates(dl, il + lo, k_local)
     return dl, gi, count
 
 
@@ -1055,15 +1055,7 @@ def search_sharded(table: AMTable, queries, *, mesh, rules=None, k: int = 1,
     """
     from repro_torch.dist import specs as dist_specs
 
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if matches is not None:
-        if k != 1:
-            raise ValueError(
-                f"pass either k= or matches=, not both (k={k}, "
-                f"matches={matches})")
-        if matches < 1:
-            raise ValueError(f"matches must be >= 1, got {matches}")
+    _check_window(k, matches)
     rules = rules or dist_specs.make_rules(mesh, "tp")
     axis = rules.tp
     n_banks = mesh.shape[axis]
@@ -1076,10 +1068,7 @@ def search_sharded(table: AMTable, queries, *, mesh, rules=None, k: int = 1,
     strategy = resolve_merge(merge, n_banks, k_eff)
     local_n = -(-n // n_banks)
     k_local = min(k_eff, local_n)
-    fusable = be.fused is not None and (matches is None or be.fused_count)
-    use_fused = fusable and 1 <= k_local <= FUSED_K_MAX
-    if fusable and k_local > FUSED_K_MAX:
-        _note_fused_fallback()
+    _note_fallback(be, k_local, matches is not None)
     qn = queries.shape[0]
     thr_q = (None if matches is None
              else _match_threshold(threshold, qn, table.device))
@@ -1093,7 +1082,7 @@ def search_sharded(table: AMTable, queries, *, mesh, rules=None, k: int = 1,
     thr_mine = None if thr_q is None else thr_q[q_lo:q_hi]
 
     parts = [_bank_candidates(be, table, q_mine, b * local_n, local_n,
-                              k_local, valid_rows, use_fused, thr_mine)
+                              k_local, valid_rows, thr_mine)
              for b in mesh.banks(axis)]
     gi, dl = _merge_bank_candidates(
         torch.stack([p[0] for p in parts]),

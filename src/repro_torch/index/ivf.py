@@ -400,31 +400,29 @@ def _coarse(index: IVFIndex, queries: torch.Tensor, probes: int
 
 
 def _fine_candidates(be, queries: torch.Tensor, index: IVFIndex,
-                     probed: torch.Tensor, k: int, sets=None
+                     probed: torch.Tensor, kc: int, sets=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Score the probed sets' slabs; return unsorted (dist, gid) candidates.
 
     The (query, probe) pairs are grouped by set — one host read of
     ``probed`` — and each set that some query probes is searched once, as
     its contiguous slab ``slabs[s]`` against exactly the queries that
-    probe it: with a fused-tier backend the streaming top-k kernel,
-    ``valid_rows`` = the set's size masked in-kernel, O(kc) output per
-    pair; with a dense-tier backend the full slab, dead slots masked.  The
-    slab-position tie-break equals the global-id tie-break because in-set
-    slabs are ascending-id (the build/append invariant).  Empty sets give
-    (+inf, ``_IDX_SENTINEL``) without a launch, as the kernel would, and
-    so do the sets outside ``sets`` = (first, stop) when it is given: a
-    bank of :func:`search_sharded` scores only the sets it owns.
+    probe it: one :func:`am._candidates` of ``kc <= C`` rows with
+    ``valid_rows`` = the set's size, on the tier :func:`am._fused_tier`
+    picks.  The slab-position tie-break equals the global-id tie-break
+    because in-set slabs are ascending-id (the build/append invariant),
+    so a set's first ``kc`` hold every row of it that can reach the
+    global top-k.  Empty sets give (+inf, ``_IDX_SENTINEL``) without a
+    launch, as the kernel would, and so do the sets outside ``sets`` =
+    (first, stop) when it is given: a bank of :func:`search_sharded`
+    scores only the sets it owns.
 
-    Returns (Q, P * w) float32 distances and int32 global row ids in
-    (query, probe) order, w = kc on the fused tier and C on the dense one.
+    Returns (Q, P * kc) float32 distances and int32 global row ids in
+    (query, probe) order.
     """
     q_n, p_n = probed.shape
-    s_n, cap, _ = index.slabs.shape
+    cap = index.set_capacity
     dev = queries.device
-    kc = min(k, cap)
-    fused = be.fused is not None and 1 <= kc <= am.FUSED_K_MAX
-    w = kc if fused else cap
     pairs = probed.cpu().numpy().reshape(-1)                 # pair = q*P + p
     sizes = index.set_sizes.cpu().numpy()
     order = np.argsort(pairs, kind="stable")                 # grouped by set
@@ -434,30 +432,24 @@ def _fine_candidates(be, queries: torch.Tensor, index: IVFIndex,
     ends = np.concatenate([cuts, [pairs.size]]).tolist()
     order_t = torch.from_numpy(order).to(dev)
     q_pairs = queries[order_t // p_n]                        # (Q*P, D)
-    dist = torch.full((pairs.size, w), torch.inf, dtype=torch.float32,
+    dist = torch.full((pairs.size, kc), torch.inf, dtype=torch.float32,
                       device=dev)
-    gid = torch.full((pairs.size, w), am._IDX_SENTINEL, dtype=torch.int32,
+    gid = torch.full((pairs.size, kc), am._IDX_SENTINEL, dtype=torch.int32,
                      device=dev)
     for a, b in zip(starts, ends):
         s = int(sets_in_order[a])
         size = int(sizes[s])
         if size == 0 or (sets is not None and not sets[0] <= s < sets[1]):
             continue
-        if fused:
-            il, dl = be.fused(q_pairs[a:b], index.slabs[s], index.bits,
-                              index.distance, k=kc, valid_rows=size)
-            g = index.row_ids[s][il.long().clamp_(0, cap - 1)]
-            dist[a:b] = dl
-            gid[a:b] = torch.where(torch.isinf(dl), am._IDX_SENTINEL, g)
-        else:
-            dd = be.dense(q_pairs[a:b], index.slabs[s], index.bits,
-                          index.distance).to(torch.float32)
-            live = torch.arange(cap, device=dev) < size
-            dist[a:b] = torch.where(live, dd, torch.inf)
-            gid[a:b] = torch.where(live, index.row_ids[s], am._IDX_SENTINEL)
+        il, dl, _ = am._candidates(be, q_pairs[a:b], index.slabs[s],
+                                   index.bits, index.distance, k=kc,
+                                   valid_rows=size)
+        g = index.row_ids[s][il.long().clamp_(0, cap - 1)]
+        dist[a:b] = dl
+        gid[a:b] = torch.where(torch.isinf(dl), am._IDX_SENTINEL, g)
     out_d, out_g = torch.empty_like(dist), torch.empty_like(gid)
     out_d[order_t], out_g[order_t] = dist, gid           # back to pair order
-    return out_d.reshape(q_n, p_n * w), out_g.reshape(q_n, p_n * w)
+    return out_d.reshape(q_n, p_n * kc), out_g.reshape(q_n, p_n * kc)
 
 
 def _merge(dist: torch.Tensor, gid: torch.Tensor, k: int
@@ -510,8 +502,10 @@ def search(index: IVFIndex, queries, *, k: int = 1, probes: int = 1,
     k_eff = min(k, index.sets * index.set_capacity)
     with obs.span("ivf.coarse"):
         probed, bound = _coarse(index, queries, probes)
+    kc = min(k_eff, index.set_capacity)          # no set holds more
+    am._note_fallback(be, kc, False)
     with obs.span("ivf.fine"):
-        dist, gid = _fine_candidates(be, queries, index, probed, k_eff)
+        dist, gid = _fine_candidates(be, queries, index, probed, kc)
     with obs.span("ivf.merge"):
         dist, gid = _merge(dist, gid, k_eff)
     res = am._finalize(gid, dist, threshold, squeeze)
@@ -565,9 +559,11 @@ def search_sharded(index: IVFIndex, queries, *, mesh, rules=None, k: int = 1,
     strategy = am.resolve_merge(merge, n_banks, k_eff)
     probed, bound = _coarse(index, queries, probes)
     s_local = -(-index.sets // n_banks)
+    kc = min(k_eff, index.set_capacity)
+    am._note_fallback(be, kc, False)
     dists, gids = [], []
     for b in mesh.banks(axis):
-        dist, gid = _fine_candidates(be, queries, index, probed, k_eff,
+        dist, gid = _fine_candidates(be, queries, index, probed, kc,
                                      sets=(b * s_local, (b + 1) * s_local))
         dist, gid = am._lex_sort(dist, gid)
         k_local = min(k_eff, dist.shape[1])

@@ -50,22 +50,16 @@ def _on_cuda(queries: torch.Tensor, table: torch.Tensor) -> bool:
     return table.device.type == "cuda"
 
 
-def _int8_padded(x: torch.Tensor) -> torch.Tensor:
-    """int8, contiguous, D zero-padded to a multiple of the kernel's."""
+def _int8(x: torch.Tensor, pad: bool) -> torch.Tensor:
+    """``x`` cast to int8 once, contiguous; for the kernels' symbols
+    (``pad``) with D zero-padded to a multiple of ``_k.D_MULTIPLE``."""
     rows, d = x.shape
-    dp = -(-d // _k.D_MULTIPLE) * _k.D_MULTIPLE
+    dp = -(-d // _k.D_MULTIPLE) * _k.D_MULTIPLE if pad else d
     if dp == d:
         return x.to(torch.int8).contiguous()
     out = torch.zeros((rows, dp), dtype=torch.int8, device=x.device)
     out[:, :d] = x
     return out
-
-
-def _int8(x: torch.Tensor, pad: bool) -> torch.Tensor:
-    """``x`` as int8, contiguous, and for the kernels' symbols (``pad``) as
-    :func:`_int8_padded`."""
-    x = x.to(torch.int8)
-    return _int8_padded(x) if pad else x.contiguous()
 
 
 def _cast(queries, table, care, pad: bool):

@@ -1075,19 +1075,18 @@ class AMService:
                               tab.care is not None, probes,
                               None if index is None
                               else tuple(index.slabs.shape)))
-        # am.search counts each dense-tier fallback of a fused backend; the
-        # lock serialises this service's dispatches, so the delta is this
-        # group's unless another thread searches at the same moment.  The
-        # index tier does not go through am.search: its group counts by the
-        # reference's rule, k above FUSED_K_MAX on a fused backend.
-        before = am.fused_fallbacks()
         out = self._dispatch(tab, _to_device(queries, self.device), t.n, q,
                              thr, now, k=k, backend=backend, matches=matches,
                              index=index, probes=probes, mesh=self._mesh,
                              rules=self._rules, merge=self._merge)
-        self.fused_fallbacks += am.fused_fallbacks() - before
-        if (index is not None and min(k, tab.n_rows) > am.FUSED_K_MAX
-                and am._resolve_backend(backend).fused is not None):
+        # the window of one candidate search: a bank's rows on a mesh; an
+        # indexed top-k counts at the table's rows, as the reference does
+        multi = matches is not None
+        rows = tab.n_rows
+        if self._mesh is not None and (index is None or multi):
+            rows = -(-rows // self._mesh.shape[self._rules.tp])
+        if am.dense_fallback(backend, min(matches if multi else k, rows),
+                             multi=multi):
             self.fused_fallbacks += 1
         *arrays, new_meta = out
         host = tuple(_to_host(a) for a in arrays)

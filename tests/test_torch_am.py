@@ -234,3 +234,81 @@ def test_infinite_threshold_counts_each_row_once():
                     valid_rows=10, backend="cuda")
     _same_result(got, want, MULTI)
     assert got.match_count.tolist() == [13, 13]
+
+
+# ---------------------------------------------------------------------------
+# the tier rule, on every search path
+# ---------------------------------------------------------------------------
+
+#: ``ivf.search`` has no multi-match mode, so it runs top-k cases only.
+TIER_PATHS = [(path, multi) for path in ("search", "sharded", "ivf",
+                                         "service")
+              for multi in (False, True) if not (path == "ivf" and multi)]
+
+
+def _tier_search(path, backend, table, queries, window, multi):
+    """One search of ``window`` candidates down ``path``: its result
+    fields as tensors, and the service's ``fused_fallbacks`` (or None)."""
+    from repro_torch.dist import LocalMesh
+    from repro_torch.index import ivf
+    from repro_torch.serve import AMService
+    kw = (dict(matches=window, threshold=4.0) if multi
+          else dict(k=window, threshold=4.0))
+    if path == "service":
+        svc = AMService(device=CPU)
+        svc.create_table("t", width=table.width, capacity=table.n_rows,
+                         backend=backend)
+        svc.append("t", table.codes[:600].numpy())
+        r = svc.lookup("t", queries[0].numpy(), **kw)
+        out = [r.indices, r.distances, r.exact, r.matched]
+        if multi:
+            out += [r.match_count, r.overflow]
+        return [torch.as_tensor(np.asarray(x)) for x in out], \
+            svc.stats()["fused_fallbacks"]
+    if path == "search":
+        r = am.search(table, queries, valid_rows=600, backend=backend, **kw)
+    elif path == "sharded":
+        r = am.search_sharded(table, queries, mesh=LocalMesh((2,),
+                                                             ("model",)),
+                              valid_rows=600, backend=backend, **kw)
+    else:
+        index = ivf.build(table, sets=2, set_capacity=table.n_rows)
+        r = ivf.search(index, queries, k=window, probes=2, threshold=4.0,
+                       backend=backend).result
+    return [getattr(r, f) for f in (MULTI if multi else TOPK)], None
+
+
+@pytest.mark.parametrize("path,multi", TIER_PATHS)
+@pytest.mark.parametrize("window", [256, 257])
+def test_one_tier_rule_on_every_path(monkeypatch, path, multi, window):
+    """Each search path runs the fused tier exactly where the tier rule
+    says (window <= FUSED_K_MAX; 640 rows, a 2-bank mesh's bank 320 and an
+    index's slab 640 clamp nothing here), counts a fallback exactly where
+    the dense tier ran, and answers bitwise as the ``"cuda"`` backend."""
+    real = am._BACKENDS["cuda"]
+    calls = []
+
+    def spy(tier):
+        def fn(*args, **kwargs):
+            calls.append(tier)
+            return getattr(real, tier)(*args, **kwargs)
+        return fn
+
+    monkeypatch.setitem(am._BACKENDS, "spy", am._Backend(
+        dense=spy("dense"), fused=spy("fused"), masked=real.masked,
+        fused_count=real.fused_count))
+    codes = _codes(71, 640)
+    table = am.make_table(codes, bits=3, device=CPU)
+    queries = torch.from_numpy(_queries(codes, 72))
+    dense = window > am.FUSED_K_MAX
+    assert am.dense_fallback("spy", window, multi=multi) == dense
+    am.reset_fused_fallbacks()
+    got, svc_fallbacks = _tier_search(path, "spy", table, queries, window,
+                                      multi)
+    assert calls and set(calls) == {"dense" if dense else "fused"}, calls
+    assert am.fused_fallbacks() == int(dense)
+    if path == "service":
+        assert svc_fallbacks == int(dense)
+    want, _ = _tier_search(path, "cuda", table, queries, window, multi)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)

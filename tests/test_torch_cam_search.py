@@ -234,8 +234,8 @@ def _l1_chain(codes, bits, care=False):
     from repro_torch.core import am
     if care:
         wide = torch.repeat_interleave(codes, (1 << bits) - 1, dim=-1)
-        return tref.pack_care(tops._int8_padded(wide), 2)
-    return tref.pack_planes(tops._int8_padded(am.thermometer(codes, bits)),
+        return tref.pack_care(tops._int8(wide, True), 2)
+    return tref.pack_planes(tops._int8(am.thermometer(codes, bits), True),
                             2)
 
 

@@ -160,9 +160,9 @@ def test_pack_l1_against_the_expansion_chain(dev, bits, d, care):
     c8 = None if c is None else _unaligned(c)
     qp, tp, cp = kernel.pack_l1(q8, t8, bits=bits, care=c8)
     assert kernel.launches["cam_pack_l1"] == 1
-    wide = [ops._int8_padded(am.thermometer(x, bits)) for x in (q, t)]
-    wc = (None if c is None else ops._int8_padded(
-        torch.repeat_interleave(c, (1 << bits) - 1, dim=-1)))
+    wide = [ops._int8(am.thermometer(x, bits), True) for x in (q, t)]
+    wc = (None if c is None else ops._int8(
+        torch.repeat_interleave(c, (1 << bits) - 1, dim=-1), True))
     want = kernel.pack(wide[0], wide[1], levels=2, care=wc)
     assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,
                                "cam_pack": 1, "cam_pack_l1": 1}
