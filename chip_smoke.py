@@ -168,7 +168,9 @@ change to a model family: ``phase_device()``, ``phase_build()`` and
    and a library call where one computes the same thing (the CAM kernels
    also at ``topk_sweep``'s Q = 1,024 against its 2^20-row table, the
    fused kernel at each k of the sweep, and the benchmark's two tiers
-   held to the same plain results there); ``hdc_encode``
+   held to the same plain results there, and at the HDC cell's 4,096
+   queries against 26 class rows, where it takes the few-row pass, as
+   device time beside its popc bound); ``hdc_encode``
    also against ``torch.matmul``'s time for the product alone, and
    ``hdc_encode`` and ``mibo_mc`` also as device time (a CUDA graph of
    launches) beside the time per call.
@@ -428,6 +430,9 @@ def kernel_cases():
         ("b3-q1", 3, 1, 777, 48, True, False, None, 10, False),
         ("l1-care", 3, 33, 2000, 20, True, True, 1500, 10, True),
         ("b3-wide", 3, 64, 131_072, 256, False, False, 120_000, 10, False),
+        # at most 32 rows: the fused tier's few-row partial pass
+        ("b3-few-rows", 3, 37, 26, 200, True, True, 13, 20, False),
+        ("l1-few-rows", 3, 300, 26, 4096, False, False, None, 1, True),
     ]
 
 
@@ -500,7 +505,8 @@ def out_of_range_cases():
     return [(1, 9, 1000, 48, False, 10, 990),
             (3, 70, 3000, 48, True, 256, 2500),
             (3, 16, 777, 16, False, 1, None),
-            (7, 33, 2000, 64, True, 10, 1999)]
+            (7, 33, 2000, 64, True, 10, 1999),
+            (7, 21, 30, 48, True, 30, 25)]          # the few-row pass
 
 
 def _check_out_of_range(rng, dev):
@@ -785,13 +791,15 @@ def _perturb(rng, word, n_sym, levels):
 def _ivf_launches(launches, groups):
     """The launch rule of an indexed table: per group one coarse dense
     search, and one fine fused search per distinct non-empty probed set
-    (at least one, at most ``IVF_SETS``), each with its pack.
+    (at least one, at most ``IVF_SETS``), each with its pack; the sets'
+    slabs hold far more than 32 rows, so no few-row pass.
     :func:`_ivf_k10_checks` narrows the fine count with the probed sets,
     and :func:`_ivf_group_split` checks each stage's count exactly."""
     fine = launches["cam_search_topk"]
     return (launches["cam_search"] == groups
             and groups <= fine <= groups * IVF_SETS
             and launches["cam_pack"] == groups + fine
+            and launches["cam_search_topk_few"] == 0
             and all(n == 0 for name, n in launches.items()
                     if not name.startswith("cam_")))
 
@@ -1490,11 +1498,16 @@ def _fig12():
     the plain top-1 on the CPU."""
     import torch
     from repro_torch.core import am
+    from repro_torch.kernels.cam_search import kernel
     from torch_benchmarks import fig12_speedup as fig12
 
     def expect(rows):
+        # K = 12 or 26 class rows: the few-row partial pass, every search
         n = sum(r["searches"] for r in rows)
-        return {"cam_search_topk": n, "cam_pack": n}
+        few = sum(r["searches"] for r in rows
+                  if r["k_classes"] <= kernel.FEW_ROWS_MAX)
+        return {"cam_search_topk": n, "cam_search_topk_few": few,
+                "cam_pack": n}
 
     rows, info = _run_path("fig12", fig12.run, expect)
     first = rows[0]
@@ -1781,12 +1794,14 @@ def phase_app():
     data = {name: _hdc_setup(name) for name in ("isolet", "ucihar", "pamap")}
     data["ucihar_1500_500"] = _hdc_setup("ucihar", 1500, 500)
     n_cam = len(set(HDC_FIG11A + HDC_FIG11B)) + 2      # + the ucihar two
-    # L1 searches of multi-bit codes take the L1 pack (ucihar: 3 bits, 1 bit)
+    # L1 searches of multi-bit codes take the L1 pack (ucihar: 3 bits, 1 bit);
+    # every search, over 26 (isolet) or 12 (ucihar) class rows, the few-row
+    # partial pass
     n_l1 = sum(b > 1 for _, b in set(HDC_FIG11A + HDC_FIG11B)) + 1
     (accs, cam_calls), paths["hdc_isolet"] = _run_path(
         "hdc_isolet", lambda: _hdc_isolet(data),
-        {"cam_search_topk": n_cam, "cam_pack": n_cam - n_l1,
-         "cam_pack_l1": n_l1})
+        {"cam_search_topk": n_cam, "cam_search_topk_few": n_cam,
+         "cam_pack": n_cam - n_l1, "cam_pack_l1": n_l1})
     check(cam_calls == n_cam, f"hdc_isolet made {cam_calls} CUDA searches")
     print(f"  hdc_isolet accuracies: {json.dumps(accs)}")
     paths["hdc_isolet"]["accuracy"] = accs
@@ -2034,10 +2049,11 @@ def _lm_warm_restart(out):
 def _serve_path(path, argv):
     """``launch.serve.main(argv)`` with the launch counts zeroed before and
     read after: one ``cam_pack`` and one ``cam_search_topk`` per lookup
-    group of the AM cache and no other kernel; all 6 requests answered,
-    repeats served from the cache.  Returns (output, launches, seconds,
-    lookup groups)."""
+    group of the AM cache (a few-row pass too: its default capacity is 8
+    rows) and no other kernel; all 6 requests answered, repeats served
+    from the cache.  Returns (output, launches, seconds, lookup groups)."""
     import torch
+    from repro_torch.kernels.cam_search import kernel
     from repro_torch.launch import serve as launch_serve
     reset_launches()
     t0 = time.perf_counter()
@@ -2047,7 +2063,9 @@ def _serve_path(path, argv):
     launches = read_launches()
     cache = out["cache"]
     groups = sum(cache["buckets"].values())
-    want = {name: groups if name in ("cam_search_topk", "cam_pack") else 0
+    few = cache["capacity"] <= kernel.FEW_ROWS_MAX
+    want = {name: groups if name in ("cam_search_topk", "cam_pack")
+            or (few and name == "cam_search_topk_few") else 0
             for name in launches}
     check(launches == want, f"{path}: launches {launches}, expected "
           f"{want} for {groups} lookup groups")
@@ -3601,6 +3619,66 @@ def _time_pack_l1(q8, t8, bits, groups):
             "bound_ms": max(t_b, t_o)}
 
 
+#: An H100 SM issues 16 popc a cycle, at up to 1.98 GHz: the bound of the
+#: fused top-k's few-row pass, one popc a 32-symbol group of each pair.
+POPC_PER_CYCLE, SM_HZ = 16, 1.98e9
+
+
+def _time_topk_few():
+    """The fused top-k at the HDC cell's shape (4,096 queries against 26
+    class rows of 4,096 3-bit codes, at L1), which takes the few-row
+    partial pass: held bitwise against plain (on the thermometer
+    expansion), then timed.  ``ms`` one call through the wrapper;
+    ``device_ms`` the device's time a call in a CUDA graph (the L1 pack,
+    the partial pass and the merge), ``pack_device_ms`` the L1 pack's
+    alone, ``search_device_ms`` the difference (partial and merge passes).
+    ``popc_bound_ms``: Q x N x groups popc at ``POPC_PER_CYCLE`` an SM a
+    cycle on every SM at ``SM_HZ``."""
+    import torch
+    from repro_torch.core import am
+    from repro_torch.kernels.cam_search import kernel, ref
+    dev = torch.device("cuda")
+    qn, n, d, levels = 4096, 26, 4096, 1 << BITS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    q8, t8 = (torch.randint(0, levels, shape, generator=gen, device=dev,
+                            dtype=torch.int8) for shape in ((qn, d), (n, d)))
+    q8[:n] = t8                                       # an exact hit each
+    vr = torch.full((1,), n, dtype=torch.int32, device=dev)
+
+    def call():
+        return kernel.cam_search_topk(q8, t8, vr, levels=levels, k=1, l1=True)
+
+    def pack():
+        return kernel.pack_l1(q8, t8, bits=BITS)
+
+    pq, pt = (am.thermometer(x, BITS).to(torch.int8) for x in (q8, t8))
+    plain_ms, want = _timed_once(lambda: ref.topk(pq, pt, 1, valid_rows=vr))
+    del pq, pt
+    kernel.reset_launches()
+    got = call()
+    check(kernel.launches["cam_search_topk_few"] == 1,
+          f"the HDC shape took no few-row pass: {dict(kernel.launches)}")
+    check(all(torch.equal(g, w) for g, w in zip(got, want, strict=True)),
+          "cam_search_topk's few-row pass differs from plain at the HDC "
+          "shape")
+    del got, want
+    ms = _time_ms(call, 10)
+    device_ms = _graph_ms(call, 20)
+    pack_ms = _graph_ms(pack, 20)
+    _, _, gp = ref.plane_layout(ref.l1_width(d, BITS), 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    popc_ms = qn * n * gp / (POPC_PER_CYCLE * sms * SM_HZ) * 1e3
+    t_b, t_o = _bound_parts(qn * d + n * d + 4 + qn * 8,
+                            qn * n * ref.l1_width(d, BITS))
+    return {"Q": qn, "N": n, "D": d, "k": 1, "bits": BITS, "groups": 0,
+            "path": "hdc_isolet_d4096.bulk_k1", "ms": ms,
+            "device_ms": device_ms, "pack_device_ms": pack_ms,
+            "search_device_ms": device_ms - pack_ms,
+            "popc_bound_ms": popc_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bytes_ms": t_b, "ops_ms": t_o,
+            "bound_ms": max(t_b, t_o)}
+
+
 def _tile_ms(fn):
     """The kernel call ``fn`` timed with 16- and with 64-query blocks."""
     out = {}
@@ -3736,6 +3814,13 @@ def phase_timing(run, err):
     del l1_t8
     dense.append(_time_dense(batch(64), t8, levels, 0, err))
     _topk_sweep_shapes(fused, dense, packs, err)
+    few = _time_topk_few()
+    fused.append(few)
+    print(f"  cam_search_topk few-row pass at the HDC shape: device "
+          f"{few['device_ms']:.4f} ms a call in a graph (L1 pack "
+          f"{few['pack_device_ms']:.4f}, partial + merge "
+          f"{few['search_device_ms']:.4f}), one call {few['ms']:.4f} ms; "
+          f"popc bound {few['popc_bound_ms']:.4f} ms")
 
     rows = [
         _row("cam_search", "src/repro/kernels/cam_search/kernel.py:114",

@@ -76,6 +76,10 @@
 // (+inf, 2^31 - 1).  A traced copy of pass 1 (unmasked, uncounted only)
 // also counts its votes, inserts, offered keys and clock cycles (TopkStat)
 // for src/repro_torch/obs.py; the untraced pass is compiled without them.
+// A table of at most 32 rows takes the few-row pass 1 (the same pass at
+// another tile shape: one 32-row tile, 16 queries a block, the next chunk
+// fetched while one is compared, one row a lane in the vote; its note is
+// at `cam_topk_partial_few_kernel`).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,10 +87,11 @@
 namespace {
 
 constexpr int BN = 128;          // table rows per tile
+constexpr int FEW_BN = 32;       // rows per tile of the few-row partial pass
+constexpr int FEW_BQ = 16;       // queries per block of the few-row pass
 constexpr int CW = 32;           // packed words per row per shared chunk
 constexpr int LDW = CW + 4;      // padded shared row stride, in words
 constexpr int THREADS = 256;     // a 16 x 16 grid of threads
-constexpr int TN = BN / 16;      // table rows per thread
 constexpr int MAX_K = 256;       // largest k of the fused tier
 constexpr int MERGE_WARPS = 4;   // queries per block in the merge pass
 constexpr int PACK_THREADS = 256;
@@ -296,12 +301,50 @@ __device__ __forceinline__ void load_words(uint32_t* dst, const uint32_t* src,
   }
 }
 
-// Care words of groups [g0, g0 + GC) of table rows [n0, n0 + BN).
-template <int P>
+// The few-row pass's loads, in two halves so that a chunk's words are in
+// flight while the one before is compared: item e = threadIdx.x + THREADS
+// * i of the chunk's BQ query rows, then its TR table rows, VPR 16-byte
+// items a row, fetched into registers (0 outside the matrices) and stored
+// where load_words stores them.
+template <int BQ, int TR, int NL>
+__device__ __forceinline__ void fetch_words(uint4 (&v)[NL],
+                                            const uint32_t* qp,
+                                            const uint32_t* tp, int q0,
+                                            int Q, int n0, int N, int RW,
+                                            int w0) {
+  constexpr int VPR = CW / 4;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int e = threadIdx.x + THREADS * i, r = e / VPR;
+    const int w = w0 + 4 * (e % VPR);
+    const bool tab = r >= BQ;
+    const int row = tab ? n0 + r - BQ : q0 + r;
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (r < BQ + TR && row < (tab ? N : Q) && w < RW)
+      v[i] = *reinterpret_cast<const uint4*>((tab ? tp : qp) +
+                                             (size_t)row * RW + w);
+  }
+}
+
+template <int BQ, int TR, int NL>
+__device__ __forceinline__ void stash_words(const uint4 (&v)[NL],
+                                            uint32_t* qs, uint32_t* ts) {
+  constexpr int VPR = CW / 4;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int e = threadIdx.x + THREADS * i, r = e / VPR;
+    if (r < BQ + TR)
+      *reinterpret_cast<uint4*>((r < BQ ? qs + r * LDW : ts + (r - BQ) * LDW)
+                                + 4 * (e % VPR)) = v[i];
+  }
+}
+
+// Care words of groups [g0, g0 + GC) of table rows [n0, n0 + TR).
+template <int P, int TR>
 __device__ __forceinline__ void load_care(uint32_t* dst, const uint32_t* cp,
                                           int n0, int N, int GP, int g0) {
   constexpr int GC = Layout<P>::GC, LDC = Layout<P>::LDC;
-  for (int v = threadIdx.x; v < BN * GC; v += THREADS) {
+  for (int v = threadIdx.x; v < TR * GC; v += THREADS) {
     const int r = v / GC, gi = v % GC;
     const int row = n0 + r, g = g0 + gi;
     dst[r * LDC + gi] = (row < N && g < GP) ? cp[(size_t)row * GP + g] : 0u;
@@ -321,68 +364,101 @@ __device__ __forceinline__ uint32_t group_bits(const uint32_t* qw,
   return qw[P] & tw[P] & ~x;
 }
 
-// Counts of queries [q0, q0 + BQ) against rows [n0, n0 + BN).  Thread
-// (ty, tx) owns queries q0 + ty * TQ + i and rows n0 + tx + 16 * j.
-// Unmasked it leaves #matches in acc (the caller finalises D - acc);
-// masked it leaves #mismatches.  `load_q`: (re)load the query words; a
-// caller whose rows fit one chunk loads them for its first tile only.
-template <int P, int BQ, bool MASKED>
+// The compare of one chunk of words in shared memory (qs, ts, cs): adds
+// each (query, row) pair's count over the chunk's groups to acc, thread
+// (ty, tx) owning queries ty * TQ + i and rows tx + 16 * j of the tile.
+template <int P, int BQ, int TR, bool MASKED>
+__device__ __forceinline__ void chunk_counts(int (&acc)[BQ / 16][TR / 16],
+                                             const uint32_t* qs,
+                                             const uint32_t* ts,
+                                             const uint32_t* cs, int tx,
+                                             int ty) {
+  using L = Layout<P>;
+  constexpr int TQ = BQ / 16, TN = TR / 16, W = L::W, SW = L::SW,
+                GS = L::GS;
+#pragma unroll 2
+  for (int s = 0; s < CW / SW; ++s) {
+    uint32_t qw[TQ][SW];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int u = 0; u < SW / 4; ++u) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            qs + (ty * TQ + i) * LDW + s * SW + 4 * u);
+        qw[i][4 * u] = v.x; qw[i][4 * u + 1] = v.y;
+        qw[i][4 * u + 2] = v.z; qw[i][4 * u + 3] = v.w;
+      }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int r = tx + 16 * j;
+      uint32_t tw[SW], cw[GS];
+#pragma unroll
+      for (int u = 0; u < SW / 4; ++u) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(ts + r * LDW + s * SW + 4 * u);
+        tw[4 * u] = v.x; tw[4 * u + 1] = v.y;
+        tw[4 * u + 2] = v.z; tw[4 * u + 3] = v.w;
+      }
+#pragma unroll
+      for (int gs = 0; gs < GS; ++gs)
+        cw[gs] = MASKED ? cs[r * L::LDC + s * GS + gs] : 0u;
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        int c = 0;
+#pragma unroll
+        for (int gs = 0; gs < GS; ++gs)
+          c += __popc(group_bits<P, MASKED>(&qw[i][gs * W], &tw[gs * W],
+                                            cw[gs]));
+        acc[i][j] += c;
+      }
+    }
+  }
+}
+
+// Counts of queries [q0, q0 + BQ) against rows [n0, n0 + TR), a tile of
+// TR rows (BN, or FEW_BN in the few-row pass), chunk by chunk of CW words
+// (chunk_counts).  Unmasked it leaves #matches in acc (the caller
+// finalises D - acc); masked it leaves #mismatches.  `load_q`: (re)load
+// the query words; a caller whose rows fit one chunk loads them for its
+// first tile only.  The few-row pass compares few pairs a chunk (32 popc a
+// thread against 512 in a 128-row tile of 64 queries), too few to cover a
+// chunk's load: it fetches the next chunk into registers while it compares
+// this one, and (its one tile the split) always reloads the queries.
+template <int P, int BQ, int TR, bool MASKED>
 __device__ __forceinline__ void tile_counts(
-    int (&acc)[BQ / 16][TN], const uint32_t* __restrict__ qp,
+    int (&acc)[BQ / 16][TR / 16], const uint32_t* __restrict__ qp,
     const uint32_t* __restrict__ tp, const uint32_t* __restrict__ cp, int q0,
     int Q, int n0, int N, int GP, bool load_q, uint32_t* qs, uint32_t* ts,
     uint32_t* cs) {
-  using L = Layout<P>;
-  constexpr int TQ = BQ / 16, W = L::W, SW = L::SW, GS = L::GS;
+  constexpr int TQ = BQ / 16, TN = TR / 16, W = Layout<P>::W;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int RW = GP * W;
 #pragma unroll
   for (int i = 0; i < TQ; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-  for (int w0 = 0; w0 < RW; w0 += CW) {
-    if (load_q) load_words(qs, qp, q0, BQ, Q, RW, w0);
-    load_words(ts, tp, n0, BN, N, RW, w0);
-    if (MASKED) load_care<P>(cs, cp, n0, N, GP, w0 / W);
-    __syncthreads();
-#pragma unroll 2
-    for (int s = 0; s < CW / SW; ++s) {
-      uint32_t qw[TQ][SW];
-#pragma unroll
-      for (int i = 0; i < TQ; ++i)
-#pragma unroll
-        for (int u = 0; u < SW / 4; ++u) {
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              qs + (ty * TQ + i) * LDW + s * SW + 4 * u);
-          qw[i][4 * u] = v.x; qw[i][4 * u + 1] = v.y;
-          qw[i][4 * u + 2] = v.z; qw[i][4 * u + 3] = v.w;
-        }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int r = tx + 16 * j;
-        uint32_t tw[SW], cw[GS];
-#pragma unroll
-        for (int u = 0; u < SW / 4; ++u) {
-          const uint4 v =
-              *reinterpret_cast<const uint4*>(ts + r * LDW + s * SW + 4 * u);
-          tw[4 * u] = v.x; tw[4 * u + 1] = v.y;
-          tw[4 * u + 2] = v.z; tw[4 * u + 3] = v.w;
-        }
-#pragma unroll
-        for (int gs = 0; gs < GS; ++gs)
-          cw[gs] = MASKED ? cs[r * L::LDC + s * GS + gs] : 0u;
-#pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-          int c = 0;
-#pragma unroll
-          for (int gs = 0; gs < GS; ++gs)
-            c += __popc(group_bits<P, MASKED>(&qw[i][gs * W], &tw[gs * W],
-                                              cw[gs]));
-          acc[i][j] += c;
-        }
-      }
+  if constexpr (TR == FEW_BN) {
+    constexpr int NL = ((BQ + TR) * (CW / 4) + THREADS - 1) / THREADS;
+    uint4 next[NL];
+    fetch_words<BQ, TR>(next, qp, tp, q0, Q, n0, N, RW, 0);
+    for (int w0 = 0; w0 < RW; w0 += CW) {
+      stash_words<BQ, TR>(next, qs, ts);
+      if (MASKED) load_care<P, TR>(cs, cp, n0, N, GP, w0 / W);
+      __syncthreads();
+      if (w0 + CW < RW)
+        fetch_words<BQ, TR>(next, qp, tp, q0, Q, n0, N, RW, w0 + CW);
+      chunk_counts<P, BQ, TR, MASKED>(acc, qs, ts, cs, tx, ty);
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    for (int w0 = 0; w0 < RW; w0 += CW) {
+      if (load_q) load_words(qs, qp, q0, BQ, Q, RW, w0);
+      load_words(ts, tp, n0, TR, N, RW, w0);
+      if (MASKED) load_care<P, TR>(cs, cp, n0, N, GP, w0 / W);
+      __syncthreads();
+      chunk_counts<P, BQ, TR, MASKED>(acc, qs, ts, cs, tx, ty);
+      __syncthreads();
+    }
   }
 }
 
@@ -392,14 +468,14 @@ cam_search_kernel(const uint32_t* __restrict__ qp,
                   const uint32_t* __restrict__ tp,
                   const uint32_t* __restrict__ cp, int32_t* __restrict__ out,
                   int Q, int N, int D, int GP) {
-  constexpr int TQ = BQ / 16;
+  constexpr int TQ = BQ / 16, TN = BN / 16;
   __shared__ __align__(16) uint32_t qs[BQ * LDW];
   __shared__ __align__(16) uint32_t ts[BN * LDW];
   __shared__ uint32_t cs[MASKED ? BN * Layout<P>::LDC : 1];
   const int n0 = blockIdx.x * BN, q0 = blockIdx.y * BQ;
   int acc[TQ][TN];
-  tile_counts<P, BQ, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP, true, qs, ts,
-                             cs);
+  tile_counts<P, BQ, BN, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP, true, qs,
+                                 ts, cs);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < TQ; ++i) {
@@ -555,9 +631,11 @@ enum TopkStat { kVotes, kInserts, kCyclesCompare, kCyclesSelect, kOffered };
 
 // Pass 1: block (query tile, split) -> the k smallest keys of its rows for
 // each of its queries, in part_keys[q][split][0, k), and its threshold
-// count in part_counts[q][split].  TRACED adds the block's counters to
-// `stats` (one atomicAdd a counter a warp); the outputs are the same.
-template <int P, int BQ, bool MASKED, bool COUNTED, bool TRACED>
+// count in part_counts[q][split].  Tiles of TR rows: BN, or FEW_BN for a
+// table of at most FEW_BN rows (the few-row pass, k <= 32).  TRACED adds
+// the block's counters to `stats` (one atomicAdd a counter a warp); the
+// outputs are the same.
+template <int P, int BQ, int TR, bool MASKED, bool COUNTED, bool TRACED>
 __device__ __forceinline__ void topk_partial(
     const uint32_t* __restrict__ qp, const uint32_t* __restrict__ tp,
     const uint32_t* __restrict__ cp, const int32_t* __restrict__ valid_rows,
@@ -566,16 +644,17 @@ __device__ __forceinline__ void topk_partial(
     int splits, int rows_per_split, unsigned long long* __restrict__ stats) {
   static_assert(!TRACED || (!MASKED && !COUNTED),
                 "the traced pass is unmasked and uncounted");
-  constexpr int TQ = BQ / 16;
+  constexpr int TQ = BQ / 16, TN = TR / 16;
   constexpr int WARPS = THREADS / 32;
   constexpr int QPW = BQ / WARPS;            // queries per warp
-  static_assert(BN == 4 * 32, "the scan gives each lane 4 rows of a tile");
+  constexpr int RL = TR / 32;                // rows a lane in the vote
+  static_assert(TR == BN || TR == FEW_BN, "a lane votes on 4 rows or 1");
   extern __shared__ uint64_t smem[];
   uint64_t* lists = smem;                                  // [BQ][k]
-  uint32_t* dist = reinterpret_cast<uint32_t*>(lists + BQ * k);  // [BQ][BN]
-  uint32_t* qs = dist + BQ * BN;             // 16-byte aligned: BQ * BN * 4
+  uint32_t* dist = reinterpret_cast<uint32_t*>(lists + BQ * k);  // [BQ][TR]
+  uint32_t* qs = dist + BQ * TR;             // 16-byte aligned: BQ * TR * 4
   uint32_t* ts = qs + BQ * LDW;
-  uint32_t* cs = ts + BN * LDW;
+  uint32_t* cs = ts + TR * LDW;
 
   const int split = blockIdx.y, q0 = blockIdx.x * BQ;
   const int r_begin = split * rows_per_split;
@@ -598,12 +677,12 @@ __device__ __forceinline__ void topk_partial(
 
   [[maybe_unused]] long long cycles_compare = 0, cycles_select = 0;
   [[maybe_unused]] unsigned votes = 0, inserts = 0, offered = 0;
-  for (int n0 = r_begin; n0 < r_end; n0 += BN) {
+  for (int n0 = r_begin; n0 < r_end; n0 += TR) {
     [[maybe_unused]] long long t0 = 0, t1 = 0;
     if constexpr (TRACED) t0 = clock64();
     int acc[TQ][TN];
-    tile_counts<P, BQ, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP,
-                               !one_chunk || n0 == r_begin, qs, ts, cs);
+    tile_counts<P, BQ, TR, MASKED>(acc, qp, tp, cp, q0, Q, n0, N, GP,
+                                   !one_chunk || n0 == r_begin, qs, ts, cs);
     if constexpr (TRACED) {
       t1 = clock64();
       cycles_compare += t1 - t0;
@@ -612,10 +691,10 @@ __device__ __forceinline__ void topk_partial(
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j)
-        dist[(ty * TQ + i) * BN + tx + 16 * j] =
+        dist[(ty * TQ + i) * TR + tx + 16 * j] =
             MASKED ? acc[i][j] : D - acc[i][j];
     __syncthreads();
-    // Each lane takes 4 consecutive rows of the tile.  Most tiles hold no
+    // Each lane takes RL consecutive rows of the tile.  Most tiles hold no
     // row below the list's largest key once the list is full, so a 32-bit
     // filter and one vote skip them.  It is exact: the list's keys come
     // from earlier (lower) rows of this split or are SENTINEL, so a row at
@@ -625,17 +704,22 @@ __device__ __forceinline__ void topk_partial(
       const int ql = warp + WARPS * s;
       if (q0 + ql >= Q) continue;              // warp-uniform
       uint64_t* L = lists + ql * k;
-      const uint4 d4 =
-          *reinterpret_cast<const uint4*>(dist + ql * BN + 4 * lane);
-      const uint32_t dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      uint32_t dv[RL];
+      if constexpr (RL == 4) {
+        const uint4 d4 =
+            *reinterpret_cast<const uint4*>(dist + ql * TR + 4 * lane);
+        dv[0] = d4.x; dv[1] = d4.y; dv[2] = d4.z; dv[3] = d4.w;
+      } else {
+        dv[0] = dist[ql * TR + lane];
+      }
       const uint64_t last = L[k - 1];
       const uint32_t worst = (uint32_t)(last >> 32);
       const bool open = last == SENTINEL;
-      uint32_t dk[4];
+      uint32_t dk[RL];
       bool cand = false;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = n0 + 4 * lane + e;
+      for (int e = 0; e < RL; ++e) {
+        const int r = n0 + RL * lane + e;
         const bool real = r < r_end, live = r < vr;
         if (COUNTED && real)
           cnt[s] += (live ? (float)dv[e] : __int_as_float(0x7F800000)) <=
@@ -645,8 +729,27 @@ __device__ __forceinline__ void topk_partial(
       }
       if constexpr (TRACED) ++votes;
       if (__any_sync(0xFFFFFFFFu, cand)) {
-        [[maybe_unused]] const int o = insert_rows(
-            ql * k, k, dk[0], dk[1], dk[2], dk[3], n0 + 4 * lane, r_end, lane);
+        [[maybe_unused]] int o;
+        if constexpr (RL == 4) {
+          o = insert_rows(ql * k, k, dk[0], dk[1], dk[2], dk[3],
+                          n0 + 4 * lane, r_end, lane);
+        } else {
+          // The few-row pass: the split is this one tile, so the list is
+          // open and takes the tile's k smallest keys.  A lane's key goes
+          // to its rank among the real rows' keys, which are unique: equal
+          // distances rank by row, that is by lane.
+          const int rows = r_end - n0;             // warp-uniform
+          int rank = 0;
+          for (int j = 0; j < rows; ++j) {
+            const uint32_t dj =
+                n0 + j < vr ? dist[ql * TR + j] : 0xFFFFFFFFu;
+            rank += dj < dk[0] || (dj == dk[0] && j < lane);
+          }
+          if (lane < rows && rank < k)
+            L[rank] = ((uint64_t)dk[0] << 32) | (uint32_t)(n0 + lane);
+          __syncwarp();
+          o = rows;
+        }
         if constexpr (TRACED) {
           ++inserts;
           offered += o;
@@ -690,7 +793,7 @@ cam_topk_partial_kernel(const uint32_t* __restrict__ qp,
                         int32_t* __restrict__ part_counts, int Q, int N,
                         int D, int GP, int k, int splits,
                         int rows_per_split) {
-  topk_partial<P, BQ, MASKED, COUNTED, false>(
+  topk_partial<P, BQ, BN, MASKED, COUNTED, false>(
       qp, tp, cp, valid_rows, count_le, part_keys, part_counts, Q, N, D, GP, k,
       splits, rows_per_split, nullptr);
 }
@@ -705,7 +808,55 @@ cam_topk_partial_traced_kernel(const uint32_t* __restrict__ qp,
                                int D, int GP, int k, int splits,
                                int rows_per_split,
                                unsigned long long* __restrict__ stats) {
-  topk_partial<P, BQ, false, false, true>(
+  topk_partial<P, BQ, BN, false, false, true>(
+      qp, tp, nullptr, valid_rows, nullptr, part_keys, nullptr, Q, N, D, GP, k,
+      splits, rows_per_split, stats);
+}
+
+// The few-row pass: pass 1 over a table of at most FEW_BN rows (so k <=
+// 32), one FEW_BN-row tile a split, FEW_BQ queries a block.
+//
+// What bounds it on this card: the popc issue rate.  Each (query, row)
+// pair costs one popc a 32-symbol group, and an SM issues 16 popc a
+// cycle; at the HDC cell's shape (Q = 4,096, N = 26, D = 4,096 3-bit codes
+// at L1, 896 one-bit groups a row) that is 95.4 M popc, 22.8 us on 132 SMs
+// at 1.98 GHz, against 29.4 MB of query planes read once (8.8 us at 3.35
+// TB/s).  The 128-row pass compared 128 rows to find 26 (102 of them zero
+// padding) in 64 blocks of 64 queries, 4.9x the work on half the SMs.
+// What the design does: a 32-row tile, so at most 31 padding rows are
+// loaded or compared; 16-query blocks, 256 blocks at Q = 4,096, two an SM
+// on all 132; the next chunk's words fetched into registers while a chunk
+// is compared (tile_counts), since a chunk holds too little work to cover
+// its own load; the split is one tile, so the vote takes one row a lane
+// and writes each key at its rank among the tile's keys.  tile_counts'
+// compare (chunk_counts) and the counters are the 128-row pass's.
+template <int P, bool MASKED, bool COUNTED>
+__global__ void __launch_bounds__(THREADS)
+cam_topk_partial_few_kernel(const uint32_t* __restrict__ qp,
+                            const uint32_t* __restrict__ tp,
+                            const uint32_t* __restrict__ cp,
+                            const int32_t* __restrict__ valid_rows,
+                            const float* __restrict__ count_le,
+                            uint64_t* __restrict__ part_keys,
+                            int32_t* __restrict__ part_counts, int Q, int N,
+                            int D, int GP, int k, int splits,
+                            int rows_per_split) {
+  topk_partial<P, FEW_BQ, FEW_BN, MASKED, COUNTED, false>(
+      qp, tp, cp, valid_rows, count_le, part_keys, part_counts, Q, N, D, GP, k,
+      splits, rows_per_split, nullptr);
+}
+
+// The few-row pass with its counters, for an unmasked, uncounted search.
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+cam_topk_partial_few_traced_kernel(const uint32_t* __restrict__ qp,
+                                   const uint32_t* __restrict__ tp,
+                                   const int32_t* __restrict__ valid_rows,
+                                   uint64_t* __restrict__ part_keys, int Q,
+                                   int N, int D, int GP, int k, int splits,
+                                   int rows_per_split,
+                                   unsigned long long* __restrict__ stats) {
+  topk_partial<P, FEW_BQ, FEW_BN, false, false, true>(
       qp, tp, nullptr, valid_rows, nullptr, part_keys, nullptr, Q, N, D, GP, k,
       splits, rows_per_split, stats);
 }
@@ -810,7 +961,9 @@ cudaError_t launch_smem(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <int P, int BQ, bool MASKED, bool COUNTED, bool TRACED>
+// Pass 1 in tiles of TR rows (BN, or FEW_BN: the few-row kernels, BQ =
+// FEW_BQ).
+template <int P, int BQ, int TR, bool MASKED, bool COUNTED, bool TRACED>
 cudaError_t launch_partial(const uint32_t* qp, const uint32_t* tp,
                            const uint32_t* cp, const int32_t* vr,
                            const float* count_le, uint64_t* part_keys,
@@ -819,19 +972,31 @@ cudaError_t launch_partial(const uint32_t* qp, const uint32_t* tp,
                            unsigned long long* stats, cudaStream_t stream) {
   const size_t smem =
       (size_t)BQ * k * sizeof(uint64_t) +
-      (size_t)BQ * BN * sizeof(uint32_t) +
-      (size_t)(BQ + BN) * LDW * sizeof(uint32_t) +
-      (MASKED ? (size_t)BN * Layout<P>::LDC * sizeof(uint32_t) : 0);
+      (size_t)BQ * TR * sizeof(uint32_t) +
+      (size_t)(BQ + TR) * LDW * sizeof(uint32_t) +
+      (MASKED ? (size_t)TR * Layout<P>::LDC * sizeof(uint32_t) : 0);
   // the query tiles of a split run side by side and share its rows in L2
   const dim3 grid((Q + BQ - 1) / BQ, splits);
-  if constexpr (TRACED)
+  if constexpr (TR == FEW_BN) {
+    static_assert(BQ == FEW_BQ, "the few-row pass takes FEW_BQ queries");
+    if constexpr (TRACED)
+      return launch_smem(cam_topk_partial_few_traced_kernel<P>, grid, smem,
+                         stream, qp, tp, vr, part_keys, Q, N, D, GP, k,
+                         splits, rows_per_split, stats);
+    else
+      return launch_smem(cam_topk_partial_few_kernel<P, MASKED, COUNTED>,
+                         grid, smem, stream, qp, tp, cp, vr, count_le,
+                         part_keys, part_counts, Q, N, D, GP, k, splits,
+                         rows_per_split);
+  } else if constexpr (TRACED) {
     return launch_smem(cam_topk_partial_traced_kernel<P, BQ>, grid, smem,
                        stream, qp, tp, vr, part_keys, Q, N, D, GP, k, splits,
                        rows_per_split, stats);
-  else
+  } else {
     return launch_smem(cam_topk_partial_kernel<P, BQ, MASKED, COUNTED>, grid,
                        smem, stream, qp, tp, cp, vr, count_le, part_keys,
                        part_counts, Q, N, D, GP, k, splits, rows_per_split);
+  }
 }
 
 // The instantiation for (planes, tile_q, masked[, counted]).
@@ -854,19 +1019,32 @@ cudaError_t dense(int planes, int tile_q, const uint32_t* qp,
 #undef REPRO_DENSE
 }
 
-// With `stats` (unmasked and uncounted only) the traced pass runs.
-cudaError_t partial(int planes, int tile_q, bool counted, const uint32_t* qp,
-                    const uint32_t* tp, const uint32_t* cp, const int32_t* vr,
-                    const float* thr, uint64_t* pk, int32_t* pc, int Q, int N,
-                    int D, int GP, int k, int splits, int rows_per_split,
-                    unsigned long long* stats, cudaStream_t s) {
+// With `stats` (unmasked and uncounted only) the traced pass runs;
+// `tile_n` FEW_BN takes the few-row pass.
+cudaError_t partial(int planes, int tile_q, int tile_n, bool counted,
+                    const uint32_t* qp, const uint32_t* tp, const uint32_t* cp,
+                    const int32_t* vr, const float* thr, uint64_t* pk,
+                    int32_t* pc, int Q, int N, int D, int GP, int k,
+                    int splits, int rows_per_split, unsigned long long* stats,
+                    cudaStream_t s) {
   if (stats && (cp || counted)) return cudaErrorInvalidValue;
-#define REPRO_PART_T(P, BQ, M, C, T)                                         \
-  return launch_partial<P, BQ, M, C, T>(qp, tp, cp, vr, thr, pk, pc, Q, N,   \
-                                        D, GP, k, splits, rows_per_split,    \
-                                        stats, s)
+#define REPRO_PART_N(P, BQ, TR, M, C, T)                                     \
+  return launch_partial<P, BQ, TR, M, C, T>(qp, tp, cp, vr, thr, pk, pc, Q,  \
+                                            N, D, GP, k, splits,             \
+                                            rows_per_split, stats, s)
+#define REPRO_PART_T(P, BQ, M, C, T) REPRO_PART_N(P, BQ, BN, M, C, T)
 #define REPRO_PART(P, BQ, M, C) REPRO_PART_T(P, BQ, M, C, false)
+#define REPRO_FEW(P, M, C, T) REPRO_PART_N(P, FEW_BQ, FEW_BN, M, C, T)
 #define REPRO_PARTIAL(P)                                                     \
+  if (tile_n == FEW_BN) {                                                    \
+    if (stats) REPRO_FEW(P, false, false, true);                             \
+    if (cp) {                                                                \
+      if (counted) REPRO_FEW(P, true, true, false);                          \
+      REPRO_FEW(P, true, false, false);                                      \
+    }                                                                        \
+    if (counted) REPRO_FEW(P, false, true, false);                           \
+    REPRO_FEW(P, false, false, false);                                       \
+  }                                                                          \
   if (stats) {                                                               \
     if (tile_q == 16) REPRO_PART_T(P, 16, false, false, true);               \
     REPRO_PART_T(P, 64, false, false, true);                                 \
@@ -887,8 +1065,10 @@ cudaError_t partial(int planes, int tile_q, bool counted, const uint32_t* qp,
   REPRO_PART(P, 64, false, false)
   REPRO_BY_P(REPRO_PARTIAL)
 #undef REPRO_PARTIAL
+#undef REPRO_FEW
 #undef REPRO_PART
 #undef REPRO_PART_T
+#undef REPRO_PART_N
 }
 
 }  // namespace
@@ -977,21 +1157,26 @@ extern "C" int cam_search_launch(const void* qp, const void* tp,
 // scratch.  `valid_rows` is a device int32 the kernel reads itself.
 // `stats`, null or five device uint64 (TopkStat), selects the traced pass 1,
 // which adds its counters there; it takes no `cp` and no `count_le`.
-// `tile_q` (16 or 64) is the queries per block of pass 1.
+// `tile_q` (16 or 64) is the queries per block of pass 1 and `tile_n` (128,
+// or 32 with tile_q 16, k <= 32 and one tile a split: the few-row pass)
+// its rows per tile; `rows_per_split` is a multiple of `tile_n`.
 extern "C" int cam_search_topk_launch(
     const void* qp, const void* tp, const void* cp, const void* valid_rows,
     const void* count_le, void* part_keys, void* part_counts, void* out_idx,
     void* out_dist, void* out_count, void* stats, int Q, int N, int D,
     int planes, int gp, int k, int splits, int rows_per_split, int tile_q,
-    void* stream) {
-  if (k < 1 || k > MAX_K || (tile_q != 16 && tile_q != 64))
+    int tile_n, void* stream) {
+  if (k < 1 || k > MAX_K || (tile_q != 16 && tile_q != 64) ||
+      (tile_n != BN && tile_n != FEW_BN) ||
+      (tile_n == FEW_BN &&
+       (tile_q != FEW_BQ || k > 32 || rows_per_split != FEW_BN)))
     return (int)cudaErrorInvalidValue;
   auto* pk = static_cast<uint64_t*>(part_keys);
   auto* pc = static_cast<int32_t*>(part_counts);
   auto s = static_cast<cudaStream_t>(stream);
   const bool counted = count_le != nullptr;
   cudaError_t err = partial(
-      planes, tile_q, counted, static_cast<const uint32_t*>(qp),
+      planes, tile_q, tile_n, counted, static_cast<const uint32_t*>(qp),
       static_cast<const uint32_t*>(tp), static_cast<const uint32_t*>(cp),
       static_cast<const int32_t*>(valid_rows),
       static_cast<const float*>(count_le), pk, pc, Q, N, D, gp, k, splits,

@@ -25,8 +25,11 @@ contiguity and alignment; they allocate outputs and the packed scratch with
 ``torch.empty``, launch on the current stream and raise if a launch returns
 a CUDA error.  Each counts its launches in :data:`launches`: a search call
 adds one to ``cam_pack`` (``cam_pack_l1`` with ``l1``) and one to its own
-kernel (although the fused kernel runs as two passes).  The library is
-built and loaded at the first launch, never at import.
+kernel (although the fused kernel runs as two passes); a fused search of a
+table of at most :data:`FEW_ROWS_MAX` rows, which takes the few-row partial
+pass (one 32-row tile, 16 queries a block), adds one to
+``cam_search_topk_few`` as well.  The library is built and loaded at the
+first launch, never at import.
 
 While a profiler records (:mod:`repro_torch.obs`), the pack, the L1 pack
 and the fused launch run in the spans ``cam.pack``, ``cam.expand.l1`` and
@@ -54,17 +57,23 @@ MAX_K = 256
 #: Table rows per tile of the kernels (``BN`` in the source).
 _BN = 128
 
+#: Tables of at most this many rows take the fused top-k's few-row partial
+#: pass: one tile of this many rows (``FEW_BN`` in the source) and 16
+#: queries a block (``FEW_BQ``), whatever the batch.
+FEW_ROWS_MAX = 32
+
 #: Largest ``bits`` of the L1 pack: a code's 2^bits - 1 rungs fit int8.
 L1_MAX_BITS = 7
 
 #: Batches of at most this many queries take 16-query blocks, larger ones
-#: 64-query blocks (the source's two ``BQ`` instantiations).  0 sends every
-#: batch to 64-query blocks, which is how ``chip_smoke.py`` compares them.
+#: 64-query blocks (the source's two ``BQ`` instantiations), on tables of
+#: more than :data:`FEW_ROWS_MAX` rows.  0 sends every such batch to
+#: 64-query blocks, which is how ``chip_smoke.py`` compares them.
 SMALL_TILE_MAX_Q = 16
 
 #: Wrapper calls that launched their kernel, by kernel name.
-launches = LaunchCounts("cam_search", "cam_search_topk", "cam_pack",
-                        "cam_pack_l1")
+launches = LaunchCounts("cam_search", "cam_search_topk",
+                        "cam_search_topk_few", "cam_pack", "cam_pack_l1")
 reset_launches = launches.reset
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -79,7 +88,7 @@ def _lib() -> ctypes.CDLL:
         lib.cam_pack_l1_launch.restype = _I
         lib.cam_search_launch.argtypes = [_VP] * 4 + [_I] * 6 + [_VP]
         lib.cam_search_launch.restype = _I
-        lib.cam_search_topk_launch.argtypes = [_VP] * 11 + [_I] * 9 + [_VP]
+        lib.cam_search_topk_launch.argtypes = [_VP] * 11 + [_I] * 10 + [_VP]
         lib.cam_search_topk_launch.restype = _I
         lib._repro_bound = True
     return lib
@@ -207,13 +216,21 @@ def cam_search(queries: torch.Tensor, table: torch.Tensor, *, levels: int,
     return out
 
 
-def _splits(q_tiles: int, n: int, dev: torch.device) -> tuple[int, int]:
-    """(splits, rows per split): about four blocks per SM, whole tiles."""
+def _partial_plan(qn: int, n: int, sms: int):
+    """The partial pass of a fused top-k of ``qn`` queries over ``n`` rows
+    on a card of ``sms`` SMs: (queries a block, rows a tile, splits, rows
+    a split, the launch counts the call adds to).  A table of at most
+    :data:`FEW_ROWS_MAX` rows is one tile of that many rows, one split,
+    and 16-query blocks; a larger one takes 128-row tiles, the blocks of
+    :func:`_tile`, and about four blocks per SM, whole tiles a split."""
+    if n <= FEW_ROWS_MAX:
+        return (16, FEW_ROWS_MAX, 1, FEW_ROWS_MAX,
+                ("cam_search_topk", "cam_search_topk_few"))
+    bq = _tile(qn)
     tiles = -(-n // _BN)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(tiles, -(-4 * sms // q_tiles)))
+    splits = max(1, min(tiles, -(-4 * sms // -(-qn // bq))))
     per = -(-tiles // splits)
-    return -(-tiles // per), per * _BN
+    return bq, _BN, -(-tiles // per), per * _BN, ("cam_search_topk",)
 
 
 def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
@@ -229,7 +246,9 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
     While a profiler records, one unmasked search without ``count_le`` in
     ``obs.TRACE_EVERY`` adds to :mod:`repro_torch.obs`'s ``cam_topk``
     counters.  ``l1``: level codes at L1 distance, as in
-    :func:`cam_search`.
+    :func:`cam_search`.  A table of at most :data:`FEW_ROWS_MAX` rows
+    takes the few-row partial pass (:func:`_partial_plan`), bitwise the
+    same results.
     """
     qn, n, _, dev = _check_inputs(queries, table, care, codes=l1)
     _check16("valid_rows", valid_rows, torch.int32, (1,), dev)
@@ -238,8 +257,8 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} outside [1, min(N={n}, {MAX_K})]")
     qp, tp, cp, d, planes, groups = _packed(queries, table, levels, care, l1)
-    bq = _tile(qn)
-    splits, rows_per_split = _splits(-(-qn // bq), n, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bq, bn, splits, rows_per_split, counts = _partial_plan(qn, n, sms)
     part_keys = torch.empty((qn, splits, k), dtype=torch.int64, device=dev)
     idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
     dist = torch.empty((qn, k), dtype=torch.float32, device=dev)
@@ -255,9 +274,11 @@ def cam_search_topk(queries: torch.Tensor, table: torch.Tensor,
             qp.data_ptr(), tp.data_ptr(), _ptr(cp), valid_rows.data_ptr(),
             _ptr(count_le), part_keys.data_ptr(), _ptr(part_counts),
             idx.data_ptr(), dist.data_ptr(), _ptr(count), _ptr(stats), qn, n,
-            d, planes, groups, k, splits, rows_per_split, bq, stream(dev))
+            d, planes, groups, k, splits, rows_per_split, bq, bn,
+            stream(dev))
     raise_on(err, "cam_search_topk")
-    launches.add("cam_search_topk")
+    for name in counts:
+        launches.add(name)
     if count_le is None:
         return idx, dist
     return idx, dist, count

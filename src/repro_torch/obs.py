@@ -12,7 +12,8 @@ profiles the program, which is how the spans are read anyway.
   of the card while the host was in one, is placed under it, and span
   nesting says which call caused which.
 * In-kernel counters are written by a traced variant of a kernel
-  (``cam_topk_partial_traced_kernel`` in ``csrc/cam_search.cu``), into one
+  (``cam_topk_partial_traced_kernel`` in ``csrc/cam_search.cu``, and
+  ``cam_topk_partial_few_traced_kernel`` for its few-row pass), into one
   device buffer per counter group and device that this module owns.  While
   a profiler records, one launch in :data:`TRACE_EVERY` runs the traced
   variant, which takes a few per cent longer, and the rest the untraced
@@ -26,7 +27,8 @@ the launches made while a profiler recorded and those traced):
 
 ``cam_topk.votes``
     per-query votes of the fused top-k's partial pass: one a query a
-    128-row tile, so Q x ceil(N / 128) a launch.
+    128-row tile, so Q x ceil(N / 128) a launch; a table of at most 32
+    rows is one 32-row tile (the few-row pass), so Q a launch.
 ``cam_topk.inserts``
     the votes that passed, so that the warp offered the tile's rows to the
     query's list (``insert_rows``).
@@ -39,7 +41,9 @@ the launches made while a profiler recorded and those traced):
     list's largest key when ``insert_rows`` was called (below the largest
     key as each key came, up to k = 32, where they go in one at a time).
     Above k = 32 one merge takes a vote's keys at once, so offered over
-    inserts is how many single inserts each merge stands for.
+    inserts is how many single inserts each merge stands for.  In the
+    few-row pass, the rows below the largest key when the vote passed: all
+    N rows of its one tile, into a list that is still open.
 """
 
 from __future__ import annotations

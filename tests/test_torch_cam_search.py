@@ -145,7 +145,31 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.pack_l1(q[:, :5], t[:, :5], bits=3)
     assert tkernel.launches == {"cam_search": 0, "cam_search_topk": 0,
-                                "cam_pack": 0, "cam_pack_l1": 0}
+                                "cam_search_topk_few": 0, "cam_pack": 0,
+                                "cam_pack_l1": 0}
+
+
+@pytest.mark.parametrize("qn,n", [
+    (1, 1), (5, 2), (4096, 26), (37, 32), (4096, 32),         # few rows
+    (4096, 33), (16, 129), (1024, 1_000_000), (4096, 1 << 20),
+])
+def test_fused_topk_takes_the_few_row_pass_up_to_32_rows(qn, n):
+    """The host rule of the fused top-k's partial pass, read from the
+    table's N alone: at most 32 rows take one 32-row tile in 16-query
+    blocks and add a ``cam_search_topk_few`` launch beside the
+    ``cam_search_topk`` one; more rows take 128-row tiles, the batch's
+    query blocks and the splits they took before the few-row pass
+    (``am_flat_1m``'s 1,024 x 1,000,000: 16 query tiles x 33 splits)."""
+    bq, bn, splits, per, counts = tkernel._partial_plan(qn, n, 132)
+    if n <= tkernel.FEW_ROWS_MAX:
+        assert (bq, bn, splits, per) == (16, 32, 1, 32)
+        assert counts == ("cam_search_topk", "cam_search_topk_few")
+        return
+    assert counts == ("cam_search_topk",)
+    assert bn == 128 and bq == (16 if qn <= 16 else 64)
+    assert per % 128 == 0 and (splits - 1) * per < n <= splits * per
+    if (qn, n) == (1024, 1_000_000):
+        assert (-(-qn // bq), splits, per) == (16, 33, 237 * 128)
 
 
 def _out_of_range_case(seed, bits, qn, n, d, care=False):

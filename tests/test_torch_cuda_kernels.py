@@ -53,41 +53,67 @@ def dev():
 
 
 @pytest.mark.parametrize("small_tile_max_q", [16, 0])
-@pytest.mark.parametrize("bits,qn,n,d,care,counted,k,valid_rows", [
-    (1, 3, 700, 24, False, True, 256, None),
-    (3, 40, 5000, 200, True, True, 10, 4321),
-    (3, 80, 999, 16, False, True, 1, 3),
-    (3, 16, 3000, 64, True, True, 10, 2999),
+@pytest.mark.parametrize("bits,qn,n,d,care,counted,k,valid_rows,l1", [
+    (1, 3, 700, 24, False, True, 256, None, False),
+    (3, 40, 5000, 200, True, True, 10, 4321, False),
+    (3, 80, 999, 16, False, True, 1, 3, False),
+    (3, 16, 3000, 64, True, True, 10, 2999, False),
     # k > 32, the lists merged: splits of two or three tiles (hundreds of
     # splits), whose first tile offers all 128 rows to an open list (more
     # than k where k < 128); valid_rows inside a split
-    (3, 16, 200_000, 64, False, False, 100, None),
-    (3, 40, 70_000, 48, True, True, 33, 65_432),
-    (1, 24, 150_000, 32, True, False, 64, 100_001),
-    (3, 130, 60_000, 128, False, True, 128, 59_999),
-    (7, 8, 100_000, 96, False, False, 256, 77_777),
-    (3, 64, 90_000, 64, True, True, 256, None),
+    (3, 16, 200_000, 64, False, False, 100, None, False),
+    (3, 40, 70_000, 48, True, True, 33, 65_432, False),
+    (1, 24, 150_000, 32, True, False, 64, 100_001, False),
+    (3, 130, 60_000, 128, False, True, 128, 59_999, False),
+    (7, 8, 100_000, 96, False, False, 256, 77_777, False),
+    (3, 64, 90_000, 64, True, True, 256, None, False),
+    # at most 32 rows: the few-row pass (one 32-row tile, 16-query blocks,
+    # Q no multiple of 16), k = 1 and k = N, valid_rows below N
+    (1, 37, 1, 24, False, False, 1, None, False),
+    (3, 20, 2, 64, True, True, 2, 1, False),
+    (3, 50, 26, 200, False, False, 1, None, False),
+    (7, 33, 26, 96, True, True, 26, 20, False),
+    (1, 17, 32, 48, False, True, 32, 31, False),
+    (3, 64, 32, 128, True, False, 5, None, False),
+    # 33 rows: the 128-row pass, k = N above 32 (the merge) and k = 1
+    (3, 40, 33, 64, False, True, 33, 30, False),
+    (7, 45, 33, 64, True, False, 1, None, False),
+    # the HDC cell's L1 search (26 class rows of 4,096 3-bit codes, here
+    # 100 queries), and with a care plane and a count at k = N
+    (3, 100, 26, 4096, False, False, 1, None, True),
+    (3, 70, 26, 4096, True, True, 26, 25, True),
 ])
 def test_kernels_bitwise_against_plain(dev, monkeypatch, small_tile_max_q,
                                        bits, qn, n, d, care, counted, k,
-                                       valid_rows):
-    # 0 sends small batches to the 64-query blocks as well
+                                       valid_rows, l1):
+    # 0 sends small batches to the 64-query blocks as well (tables of more
+    # than kernel.FEW_ROWS_MAX rows; the few-row pass takes 16 always)
     monkeypatch.setattr(kernel, "SMALL_TILE_MAX_Q", small_tile_max_q)
     rng = np.random.default_rng(n)
     t = torch.from_numpy(rng.integers(0, 1 << bits, (n, d))).to(dev)
     q = torch.from_numpy(rng.integers(0, 1 << bits, (qn, d))).to(dev)
-    t[5::3] = t[1]
-    q[0] = t[1]
+    t[5::3] = t[min(1, n - 1)]
+    q[0] = t[min(1, n - 1)]
     c = (torch.from_numpy((rng.random((n, d)) > 0.3).astype(np.int32))
          .to(dev) if care else None)
     thr = (torch.full((qn, 1), float(d // 3), device=dev) if counted
            else None)
     q8, t8 = q.to(torch.int8), t.to(torch.int8)
-    assert torch.equal(ops.mismatch_counts(q8, t8, bits, care=c),
-                       ref.mismatch_counts(q8, t8, c))
+    # plain: an L1 search counts on the codes' thermometer expansion
+    pq, pt, pc = q8, t8, c
+    if l1:
+        pq, pt = (am.thermometer(x, bits).to(torch.int8) for x in (q, t))
+        pc = (None if c is None else
+              torch.repeat_interleave(c, (1 << bits) - 1, dim=-1))
+    assert torch.equal(ops.mismatch_counts(q8, t8, bits, care=c, l1=l1),
+                       ref.mismatch_counts(pq, pt, pc))
+    kernel.reset_launches()
     got = ops.topk_fused(q8, t8, k, bits, valid_rows=valid_rows, care=c,
-                         count_le=thr)
-    want = ref.topk(q8, t8, k, valid_rows=valid_rows, care=c, count_le=thr)
+                         count_le=thr, l1=l1)
+    assert kernel.launches["cam_search_topk"] == 1
+    assert kernel.launches["cam_search_topk_few"] == int(
+        n <= kernel.FEW_ROWS_MAX)
+    want = ref.topk(pq, pt, k, valid_rows=valid_rows, care=pc, count_le=thr)
     assert len(got) == len(want) == (3 if counted else 2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -129,7 +155,8 @@ def test_kernels_follow_the_onehot_rule(dev, monkeypatch, small_tile_max_q,
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert kernel.launches == {"cam_search": 1, "cam_search_topk": 1,
-                               "cam_pack": 3, "cam_pack_l1": 0}
+                               "cam_search_topk_few": 0, "cam_pack": 3,
+                               "cam_pack_l1": 0}
 
 
 def _unaligned(x):
@@ -165,7 +192,8 @@ def test_pack_l1_against_the_expansion_chain(dev, bits, d, care):
         torch.repeat_interleave(c, (1 << bits) - 1, dim=-1), True))
     want = kernel.pack(wide[0], wide[1], levels=2, care=wc)
     assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,
-                               "cam_pack": 1, "cam_pack_l1": 1}
+                               "cam_search_topk_few": 0, "cam_pack": 1,
+                               "cam_pack_l1": 1}
     assert torch.equal(qp, want[0]) and torch.equal(tp, want[1])
     assert torch.equal(qp, ref.pack_planes_l1(q8, bits))
     assert torch.equal(tp, ref.pack_planes_l1(t8, bits))
@@ -201,8 +229,8 @@ def test_l1_search_on_the_card_matches_ref(dev, bits, n, d, masked):
         a = am.search(gpu, queries, backend="cuda", **kw)
         tier = "cam_search" if min(kw.get("k", 1), n) > am.FUSED_K_MAX \
             else "cam_search_topk"
-        want = {"cam_search": 0, "cam_search_topk": 0, "cam_pack": 0,
-                "cam_pack_l1": 1}
+        want = {"cam_search": 0, "cam_search_topk": 0,
+                "cam_search_topk_few": 0, "cam_pack": 0, "cam_pack_l1": 1}
         want[tier] = 1
         assert kernel.launches == want, (kw, kernel.launches)
         b = am.search(cpu, queries, backend="ref", **kw)
@@ -413,7 +441,7 @@ def test_ivf_on_the_card_matches_the_cpu(dev, k, distance):
         pack = "cam_pack_l1" if distance == "l1" else "cam_pack"
         want = {"cam_search": 1 + (fine if tier == "cam_search" else 0),
                 "cam_search_topk": fine if tier == "cam_search_topk" else 0,
-                "cam_pack": 0, "cam_pack_l1": 0}
+                "cam_search_topk_few": 0, "cam_pack": 0, "cam_pack_l1": 0}
         want[pack] = 1 + fine
         assert kernel.launches == want, (kernel.launches, want)
 
@@ -446,9 +474,11 @@ def test_sharded_search_on_the_card_matches_the_cpu(dev, merge, n, k,
     tier = "cam_search_topk" if min(k, -(-n // 8)) <= am.FUSED_K_MAX \
         else "cam_search"
     pack = "cam_pack_l1" if distance == "l1" else "cam_pack"
-    want = {"cam_search": 0, "cam_search_topk": 0, "cam_pack": 0,
-            "cam_pack_l1": 0}
+    want = {"cam_search": 0, "cam_search_topk": 0, "cam_search_topk_few": 0,
+            "cam_pack": 0, "cam_pack_l1": 0}
     want[pack] = want[tier] = banks
+    if tier == "cam_search_topk" and -(-n // 8) <= kernel.FEW_ROWS_MAX:
+        want["cam_search_topk_few"] = banks        # banks of at most 32 rows
     assert kernel.launches == want, (kernel.launches, want)
     b = am.search_sharded(cpu, queries, mesh=mesh, k=k, backend="cuda",
                           valid_rows=valid_rows, merge=merge)
@@ -475,7 +505,8 @@ def test_lpm_lookup_on_the_card_matches_the_cpu(dev):
         for f in ("indices", "distances", "match_count", "overflow"):
             assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), f
         assert kernel.launches == {"cam_search": 0, "cam_search_topk": 1,
-                                   "cam_pack": 1, "cam_pack_l1": 0}
+                                   "cam_search_topk_few": 0, "cam_pack": 1,
+                                   "cam_pack_l1": 0}
     for a in addrs[:20].tolist():
         assert int(ha[addrs.tolist().index(a)]) == tcam.lpm_oracle(
             routes, a, width=16, bits=2)

@@ -225,7 +225,8 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
             torch.zeros((1, vlm.n_prefix_embeds,
                          transformer.STUB_FRONTEND_DIM)))
     assert kernel.launches == {"cam_search": 0, "cam_search_topk": 0,
-                               "cam_pack": 0, "cam_pack_l1": 0}
+                               "cam_search_topk_few": 0, "cam_pack": 0,
+                               "cam_pack_l1": 0}
     assert enc_kernel.launches == {"hdc_encode": 0}
     assert mc_kernel.launches == {"mibo_mc": 0}
     assert fl_kernel.launches == {"flash_attention": 0}

@@ -9,8 +9,8 @@ to all of them.  Marked ``cuda`` (skipped without a card; run on the card
 with ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_obs.py``): the kernel path's spans, the L1 pack placed
 under ``cam.expand.l1``, and the traced partial
-pass of the fused top-k at the bulk cells' shape, bitwise the untraced
-pass, with exact vote counts.
+pass of the fused top-k at the bulk cells' shape and its few-row pass at
+the HDC cell's, each bitwise the untraced pass, with exact vote counts.
 """
 
 import json
@@ -306,3 +306,51 @@ def test_traced_partial_pass_is_bitwise_and_counts_every_vote(dev, k):
     assert obs.counters() == c                  # off again
     obs.reset()
     assert all(v == 0 for v in obs.counters().values())
+
+
+#: The HDC cell's search: a batch of 4,096 queries against its 26 class
+#: rows of 4,096 3-bit codes, at L1 distance.
+HDC_Q, HDC_N, HDC_D = 4096, 26, 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, HDC_N])
+def test_traced_few_row_pass_is_bitwise_and_counts_every_vote(dev, k):
+    """The few-row partial pass (a table of at most 32 rows) at the HDC
+    cell's shape: the traced launch bitwise the untraced one, one vote a
+    query (one tile), every vote inserting into its open list and offering
+    it all 26 keys."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    table = torch.randint(0, 8, (HDC_N, HDC_D), generator=gen, device=dev,
+                          dtype=torch.int8)
+    queries = torch.randint(0, 8, (HDC_Q, HDC_D), generator=gen, device=dev,
+                            dtype=torch.int8)
+    queries[:HDC_N] = table                      # an exact hit each
+    vr = torch.full((1,), HDC_N, dtype=torch.int32, device=dev)
+
+    def search():
+        return kernel.cam_search_topk(queries, table, vr, levels=8, k=k,
+                                      l1=True)
+
+    obs.reset()
+    kernel.reset_launches()
+    idx, dist = search()
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in obs.counters().values())
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):            # the first traced, the second not
+            t_idx, t_dist = search()
+            assert torch.equal(t_idx, idx) and torch.equal(
+                t_dist.view(torch.int32), dist.view(torch.int32))
+        torch.cuda.synchronize()
+    assert torch.equal(idx[:HDC_N, 0].cpu(), torch.arange(HDC_N,
+                                                          dtype=torch.int32))
+    c = obs.counters()
+    assert c["cam_topk.launches"] == 2 and c["cam_topk.traced_launches"] == 1
+    assert c["cam_topk.votes"] == c["cam_topk.inserts"] == 2 * HDC_Q
+    assert c["cam_topk.offered"] == 2 * HDC_Q * HDC_N
+    assert c["cam_topk.cycles_compare"] > 0
+    assert c["cam_topk.cycles_select"] > 0
+    assert kernel.launches["cam_search_topk"] == 3
+    assert kernel.launches["cam_search_topk_few"] == 3
+    obs.reset()
