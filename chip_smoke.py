@@ -173,7 +173,11 @@ change to a model family: ``phase_device()``, ``phase_build()`` and
    device time beside its popc bound); ``hdc_encode``
    also against ``torch.matmul``'s time for the product alone, and
    ``hdc_encode`` and ``mibo_mc`` also as device time (a CUDA graph of
-   launches) beside the time per call.
+   launches) beside the time per call; and ``hdc.classify`` at the HDC
+   cell's shape, eager and with its search replayed from a CUDA graph
+   (held bitwise): host us a call, device ms a batch, and the period and
+   busy share of 1,000 batches sent as the benchmark's client sends them
+   (``_time_classify``).
 
 Phase 2 also holds ``flash_attention`` against its plain version at the
 shapes of ``tests/test_flash_attention.py`` (float32 at 2e-5, bfloat16 at
@@ -3919,6 +3923,124 @@ def _time_mibo(s, c, groups, err):
             "library_ms": None, "bytes_ms": t_b, "ops_ms": t_o}
 
 
+#: The HDC cell's batch: 4,096 rows of 617 features out of a 65,536-row
+#: store on the card, D = 4,096, 26 classes, k = 1, 4 batches in flight.
+CLASSIFY_B, CLASSIFY_N, CLASSIFY_D, CLASSIFY_K = 4096, 617, 4096, 26
+CLASSIFY_STORE, CLASSIFY_IN_FLIGHT, CLASSIFY_BATCHES = 65536, 4, 1000
+
+
+def _stalled_ms(fn, calls):
+    """Device ms a call of ``fn`` with the host out of the way: the stream
+    held by a spin kernel while ``calls`` calls are queued behind it, then
+    run back to back between one pair of events."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)               # ~0.1 s at 1.98 GHz
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def _host_us(fn, calls):
+    """Median host microseconds of one call of ``fn``, the stream drained
+    before each, so that no call waits for a full launch queue."""
+    import torch
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(times))
+
+
+def _time_classify():
+    """``hdc.classify`` at the HDC cell's shape, eager and replayed (the
+    search half as a CUDA graph): held bitwise, eager against replayed;
+    ``host_us`` the median host time of one call over 400; ``device_ms``
+    the device's time a batch (CUDA events, :func:`_stalled_ms`; no
+    profiler, which would send the call down the eager path); then
+    ``CLASSIFY_BATCHES`` batches as the benchmark's client sends them (key
+    ids up from pinned memory, the gather, the call, the answers down to
+    pinned memory, ``CLASSIFY_IN_FLIGHT`` in flight): the period a batch on
+    the host's clock and the busy share, device ms over the period."""
+    import torch
+    from repro_torch.core import hdc
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    proj = torch.randn((CLASSIFY_N, CLASSIFY_D), generator=gen, device=dev)
+    codes = torch.randint(0, 1 << BITS, (CLASSIFY_K, CLASSIFY_D),
+                          generator=gen, device=dev, dtype=torch.int32)
+    store = torch.randn((CLASSIFY_STORE, CLASSIFY_N), generator=gen,
+                        device=dev) * 3.0 + 0.5
+    rng = np.random.default_rng(SEED + 33)
+    xs = [store[torch.from_numpy(rng.integers(0, CLASSIFY_STORE,
+                                              CLASSIFY_B)).to(dev)]
+          for _ in range(8)]
+    saved = hdc.GRAPHS_MAX
+    hdc.GRAPHS_MAX = 0
+    try:
+        eager = hdc.make_classifier(proj, codes, device=dev)
+        want = hdc.classify(eager, xs[0])
+        eager_us = _host_us(lambda: hdc.classify(eager, xs[1]), 400)
+        eager_ms = _stalled_ms(lambda: hdc.classify(eager, xs[2]), 50)
+        check(not eager._graphs, "hdc_classify: the eager classifier "
+              "kept a graph")
+    finally:
+        hdc.GRAPHS_MAX = saved
+    clf = hdc.make_classifier(proj, codes, device=dev)
+    hdc.classify(clf, xs[1])                       # eager, then the capture
+    check((CLASSIFY_B, 1, "cuda") in clf._graphs,
+          "hdc_classify: no graph at the cell's shape")
+    got = hdc.classify(clf, xs[0])
+    check(all(torch.equal(getattr(got, f), getattr(want, f))
+              for f in ("indices", "distances", "exact", "matched")),
+          "hdc_classify: the replay differs from the eager path")
+    replay_us = _host_us(lambda: hdc.classify(clf, xs[1]), 400)
+    replay_ms = _stalled_ms(lambda: hdc.classify(clf, xs[2]), 50)
+
+    keys = [torch.empty(CLASSIFY_B, dtype=torch.int64, pin_memory=True)
+            for _ in range(CLASSIFY_IN_FLIGHT + 1)]
+    inflight = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CLASSIFY_BATCHES):
+        if len(inflight) == CLASSIFY_IN_FLIGHT:
+            inflight.pop(0).synchronize()
+        buf = keys[i % len(keys)]
+        buf.numpy()[:] = rng.integers(0, CLASSIFY_STORE, CLASSIFY_B)
+        x = store.index_select(0, buf.to(dev, non_blocking=True))
+        r = hdc.classify(clf, x)
+        for t in (r.indices, r.distances):
+            torch.empty(t.shape, dtype=t.dtype,
+                        pin_memory=True).copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        inflight.append(done)
+    torch.cuda.synchronize()
+    period_ms = (time.perf_counter() - t0) * 1e3 / CLASSIFY_BATCHES
+    out = {"B": CLASSIFY_B, "n": CLASSIFY_N, "D": CLASSIFY_D,
+           "K": CLASSIFY_K, "k": 1, "bits": BITS,
+           "path": "hdc_isolet_d4096.bulk_k1",
+           "host_us_eager": eager_us, "host_us_replay": replay_us,
+           "device_ms_eager": eager_ms, "device_ms_replay": replay_ms,
+           "period_ms": period_ms, "busy_share": replay_ms / period_ms,
+           "lookups_per_s": CLASSIFY_B / period_ms * 1e3}
+    print(f"  hdc_classify: B={CLASSIFY_B} n={CLASSIFY_N} D={CLASSIFY_D} "
+          f"K={CLASSIFY_K} k=1: host us a call eager {eager_us:.1f}, "
+          f"replayed {replay_us:.1f} (median of 400); device ms a batch "
+          f"eager {eager_ms:.4f}, replayed {replay_ms:.4f}; "
+          f"{CLASSIFY_BATCHES} batches, {CLASSIFY_IN_FLIGHT} in flight: "
+          f"period {period_ms:.4f} ms, busy {100 * out['busy_share']:.1f} "
+          f"%, {out['lookups_per_s']:.1f} lookups/s")
+    return out
+
+
 def phase_timing_app(paths, encode_shapes, err):
     """hdc_encode at each shape of its path, mibo_mc at the Fig. 9 shape
     (all six launches of its path) and at 2^20 x 64."""
@@ -4038,11 +4160,12 @@ def main() -> int:
         print("phase 5: timing")
         rows, costs = phase_timing({**run, "paths": paths}, err)
         rows += phase_timing_app(paths, encode_shapes, err)
+        classify = _time_classify()
         rows += phase_timing_lm(paths, err)
         service = {**run["service"], **costs}
         print(card)
         print(json.dumps({"kernels": rows, "service": service,
-                          "paths": paths}))
+                          "hdc_classify": classify, "paths": paths}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -14,8 +14,9 @@ Port of :mod:`repro.core.hdc`.  Stages:
 the projection and the class table, built once, and each batch of features
 runs the fused encode + quantize kernel and one L1 associative search.  Its
 query codes are per row (the analytic thresholds scaled by ``||x||``), so a
-query's answer never depends on its batchmates.  :func:`predict_cam` keeps
-the reference's batch-wide quantization.
+query's answer never depends on its batchmates.  On the card the search of
+a batch shape seen before replays a CUDA graph (:class:`Classifier`).
+:func:`predict_cam` keeps the reference's batch-wide quantization.
 
 A model's tensors live on one device (the GPU unless ``device="cpu"``);
 host arrays passed to these functions go to the model's device.  The
@@ -27,6 +28,7 @@ run to run; on the CPU they are deterministic.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import TYPE_CHECKING
 
 import torch
@@ -222,14 +224,106 @@ def predict_cam_topk(model: HDCModel, hvs, k: int, *, backend: str = "ref",
     return am.search(table, model.quantize_queries(hvs), k=k, backend=backend)
 
 
+#: Batch shapes, ``(B, k, backend)``, whose search a :class:`Classifier` on
+#: the card keeps as a captured CUDA graph; later shapes run eagerly.
+GRAPHS_MAX = 2
+
+#: Backends whose search :func:`classify` replays: the card's kernels.
+_GRAPH_BACKENDS = ("cuda", "pallas")
+
+
 @dataclasses.dataclass(frozen=True)
 class Classifier:
     """A served HDC classifier: the (n, D) float32 projection and the class
     codes as an :class:`repro_torch.core.am.AMTable` (K rows of D symbols,
-    the table's ``bits`` and ``distance``), on one device."""
+    the table's ``bits`` and ``distance``), on one device.
+
+    On the card it also keeps, for the first :data:`GRAPHS_MAX` batch
+    shapes ``(B, k, backend)`` that :func:`classify` runs on the kernels
+    (``backend`` ``"cuda"``, k on the fused tier), the shape's search
+    captured in a CUDA graph (:class:`_Replay`).
+    """
 
     projection: torch.Tensor
     table: am.AMTable
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, init=False, repr=False,
+        compare=False)
+
+    def _capture(self, b: int, k: int, backend) -> None:
+        """Keep a graph of the search at ``(b, k, backend)`` if the shape
+        takes one and there is room.  Called after an eager call of the
+        shape, which built and loaded what the search launches."""
+        from repro_torch.core import am
+        key = (b, k, backend)
+        if (self.projection.device.type != "cuda"
+                or backend not in _GRAPH_BACKENDS
+                or am.dense_fallback(backend, min(k, self.table.n_rows))):
+            return
+        with self._lock:
+            if key not in self._graphs and len(self._graphs) < GRAPHS_MAX:
+                self._graphs[key] = _Replay(self, b, k, backend)
+
+
+class _Replay:
+    """The search half of :func:`classify` at one ``(B, k, backend)``:
+    ``am.search`` of the class table over a fixed (B, D) codes buffer (the
+    query cast, the L1 pack, the fused top-k and ``_finalize``), captured
+    once in a CUDA graph.
+
+    A call encodes the batch straight into the buffer (one ``hdc_encode``
+    launch), replays the graph and returns clones of its (B, k) results,
+    which the next call overwrites.  It makes no host-to-device copy and
+    no stream sync, and adds to ``cam_search``'s launch counts what an
+    eager search adds.  Calls are serialised, and a call from another
+    stream than the last waits for it.
+    """
+
+    def __init__(self, clf: Classifier, b: int, k: int, backend: str):
+        from repro_torch.core import am
+        from repro_torch.kernels.cam_search import kernel as cam_kernel
+        from repro_torch.kernels.hdc_encode import ops as encode_ops
+        dev = clf.projection.device
+        self.projection = clf.projection
+        self.thresholds = encode_ops.thresholds(clf.table.bits, dev)
+        self.codes = torch.empty((b, clf.table.width), dtype=torch.int32,
+                                 device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        before = dict(cam_kernel.launches)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.result = am.search(clf.table, self.codes, k=k,
+                                    backend=backend)
+        # the capture launched nothing: a replay adds what it counted
+        self.launches = {n: c - before[n]
+                         for n, c in cam_kernel.launches.items()
+                         if c != before[n]}
+        for name, n in self.launches.items():
+            cam_kernel.launches.add(name, -n)
+        self.stream = torch.cuda.current_stream(dev)
+        self._lock = threading.Lock()
+
+    def __call__(self, x: torch.Tensor):
+        from repro_torch.core import am
+        from repro_torch.kernels.cam_search import kernel as cam_kernel
+        from repro_torch.kernels.hdc_encode import kernel as encode_kernel
+        with self._lock:
+            stream = torch.cuda.current_stream(self.codes.device)
+            if stream != self.stream:
+                stream.wait_stream(self.stream)
+                self.stream = stream
+            with obs.span("hdc.encode"):
+                encode_kernel.hdc_encode(x.contiguous(), self.projection,
+                                         self.thresholds, out=self.codes)
+            self.graph.replay()
+            for name, n in self.launches.items():
+                cam_kernel.launches.add(name, n)
+            r = self.result
+            exact = r.exact.clone()        # classify's matched is exact
+            return am.AMSearchResult(indices=r.indices.clone(),
+                                     distances=r.distances.clone(),
+                                     exact=exact, matched=exact)
 
 
 def make_classifier(projection, class_codes, *, bits: int = 3,
@@ -257,17 +351,38 @@ def classify(clf: Classifier, x, k: int = 1, *, backend: str = "cuda"):
     ``x`` is (B, n) features.  The fused kernel encodes and quantizes them,
     ``code = #{t : (x @ P) > t * ||x||}`` (:func:`repro_torch.kernels.
     hdc_encode.ops.encode_quantize`; its plain version on the CPU), and one
-    search of the class table ranks them.  While a profiler records, the
-    call runs in the span ``hdc.classify`` and the encode in ``hdc.encode``.
+    search of the class table ranks them.  On the card a shape's first
+    call runs eagerly and then captures its search (:class:`Classifier`);
+    its later calls encode into the graph's buffer and replay it, bitwise
+    the eager answers.
+
+    While a profiler records, every call takes the eager path, in the span
+    ``hdc.classify`` with the encode in ``hdc.encode``: a graph would
+    freeze the traced top-k launch and its counters (``obs.TRACE_EVERY``)
+    as they were at capture, and the span readers tie each kernel to the
+    runtime call that launched it, which a replay does not make.
     """
-    from repro_torch.core import am
-    from repro_torch.kernels.hdc_encode import ops as encode_ops
     with obs.span("hdc.classify"):
         x = _on(x, clf.projection.device)
-        with obs.span("hdc.encode"):
-            codes = encode_ops.encode_quantize(x, clf.projection,
-                                               clf.table.bits)
-        return am.search(clf.table, codes, k=k, backend=backend)
+        if obs.enabled() or x.dim() != 2:
+            return _classify_eager(clf, x, k, backend)
+        key = (x.shape[0], k, backend)
+        replay = clf._graphs.get(key)
+        if replay is not None:
+            return replay(x)
+        result = _classify_eager(clf, x, k, backend)
+        clf._capture(*key)
+        return result
+
+
+def _classify_eager(clf: Classifier, x: torch.Tensor, k: int, backend):
+    """:func:`classify` without a graph: the encode launch, then
+    ``am.search`` (its codes freed on return, before any capture)."""
+    from repro_torch.core import am
+    from repro_torch.kernels.hdc_encode import ops as encode_ops
+    with obs.span("hdc.encode"):
+        codes = encode_ops.encode_quantize(x, clf.projection, clf.table.bits)
+    return am.search(clf.table, codes, k=k, backend=backend)
 
 
 def accuracy(pred, labels) -> float:

@@ -19,9 +19,9 @@ class LaunchCounts(dict):
         super().__init__((n, 0) for n in names)
         self._lock = threading.Lock()
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self[name] += 1
+            self[name] += n
 
     def reset(self) -> None:
         with self._lock:

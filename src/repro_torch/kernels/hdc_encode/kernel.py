@@ -14,8 +14,9 @@ float32 version's (:mod:`~repro_torch.kernels.hdc_encode.ref`), which a
 single TF32 product fails.
 
 The wrapper takes CUDA tensors only and checks device, dtype, shape and
-contiguity; it allocates the output with ``torch.empty``, launches on the
-current stream and raises if the launch returns a CUDA error.  It counts
+contiguity; it allocates the output with ``torch.empty`` unless it is given
+one (``out=``, checked as the inputs are), launches on the current stream
+and raises if the launch returns a CUDA error.  It counts
 its launches in :data:`launches`.  The library is built and loaded at the
 first launch, never at import.
 """
@@ -56,13 +57,16 @@ def _lib() -> ctypes.CDLL:
 
 
 def hdc_encode(x: torch.Tensor, proj: torch.Tensor,
-               thresholds: torch.Tensor) -> torch.Tensor:
+               thresholds: torch.Tensor, *,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """(B, n) x (n, D) float32 and (T,) float32 thresholds -> (B, D) int32.
 
     ``code[b, j] = #{t : (x @ proj)[b, j] > thresholds[t] * ||x[b]||}``,
-    with ``||x[b]|| = sqrt(sum x[b]^2 + 1e-12)``.
+    with ``||x[b]|| = sqrt(sum x[b]^2 + 1e-12)``.  ``out``: a (B, D) int32
+    tensor on x's device, contiguous, that the codes are written into and
+    that is returned (a new one when None).
     """
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+    if not isinstance(x, torch.Tensor):
         raise ValueError("x must be a CUDA tensor")
     if x.dim() != 2 or proj.dim() != 2 or thresholds.dim() != 1:
         raise ValueError("x and proj must be 2-D, thresholds 1-D")
@@ -71,11 +75,14 @@ def hdc_encode(x: torch.Tensor, proj: torch.Tensor,
     check("x", x, torch.float32, (b, n), dev)
     check("proj", proj, torch.float32, (n, d), dev)
     check("thresholds", thresholds, torch.float32, (t,), dev)
+    if out is not None:
+        check("out", out, torch.int32, (b, d), dev)
     if b < 1 or n < 1 or d < 1:
         raise ValueError(f"empty operand: B={b}, n={n}, D={d}")
     if t > MAX_THRESHOLDS:
         raise ValueError(f"{t} thresholds, at most {MAX_THRESHOLDS}")
-    out = torch.empty((b, d), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((b, d), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().hdc_encode_launch(
             x.data_ptr(), proj.data_ptr(), thresholds.data_ptr(),
